@@ -1,0 +1,122 @@
+"""Build the CUDA sources in ``felics_tpu_torch/csrc`` at first use.
+
+nvcc compiles ``csrc/*.cu`` for ``sm_90a`` into one shared library with a
+plain C interface, which ``ctypes`` loads. The library lands in
+``felics_tpu_torch/_build/`` under a name keyed by a hash of the sources and
+flags, so an edited source rebuilds and an unchanged one loads at once.
+Nothing is downloaded; a missing ``nvcc`` or a failed build raises with the
+compiler's output.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+from typing import Optional
+
+PKG_DIR = Path(__file__).resolve().parent.parent
+CSRC_DIR = PKG_DIR / "csrc"
+BUILD_DIR = PKG_DIR / "_build"
+SOURCES = ("flct_encode.cu", "flct_decode.cu")
+HEADERS = ("flct_common.cuh",)
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas=-v",  # per-kernel registers, local memory and spills
+)
+
+
+class BuildInfo:
+    """What the last build or load did: the library path, the seconds the
+    build took (0.0 when a built library was reused) and nvcc's output."""
+
+    path: Optional[Path] = None
+    seconds: Optional[float] = None
+    log: str = ""
+
+
+_lib: Optional[ctypes.CDLL] = None
+
+
+def nvcc_path() -> str:
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    candidates = [os.path.join(home, "bin", "nvcc")] if home else []
+    found = shutil.which("nvcc")
+    if found:
+        candidates.append(found)
+    candidates.append("/usr/local/cuda/bin/nvcc")  # the toolkit's default
+    for c in candidates:
+        if os.path.isfile(c) and os.access(c, os.X_OK):
+            return c
+    raise RuntimeError(
+        "nvcc not found (set CUDA_HOME or put nvcc on PATH); the FLCT CUDA "
+        "kernels are built from felics_tpu_torch/csrc at first use"
+    )
+
+
+def _source_hash() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in SOURCES + HEADERS:
+        h.update(name.encode())
+        h.update((CSRC_DIR / name).read_bytes())
+    return h.hexdigest()[:16]
+
+
+def build() -> Path:
+    """Compile the sources unless a library for this exact source hash is
+    already built; returns its path."""
+    out = BUILD_DIR / f"libflct_{_source_hash()}.so"
+    if out.exists():
+        BuildInfo.path, BuildInfo.seconds = out, 0.0
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp,
+           *(str(CSRC_DIR / s) for s in SOURCES)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
+            f"{proc.stdout}{proc.stderr}"
+        )
+    os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
+    BuildInfo.path, BuildInfo.seconds = out, seconds
+    BuildInfo.log = proc.stdout + proc.stderr
+    return out
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built on first call."""
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(str(build()))
+        vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        lib.flct_encode.restype = i32
+        lib.flct_encode.argtypes = [
+            vp, vp, i64, vp, vp, i32, i32, i32, i32, i32, i32, i32, i64, vp,
+        ]
+        lib.flct_decode.restype = i32
+        lib.flct_decode.argtypes = [
+            vp, vp, i64, vp, i32, i32, i32, i32, i32, i32, i32, i32, i64, vp,
+        ]
+        lib.flct_error_string.restype = ctypes.c_char_p
+        lib.flct_error_string.argtypes = [i32]
+        _lib = lib
+    return _lib
+
+
+def check(code: int, what: str) -> None:
+    """Raise when a C entry point reported a CUDA error."""
+    if code != 0:
+        msg = library().flct_error_string(code).decode(errors="replace")
+        raise RuntimeError(f"{what} kernel launch failed: CUDA error {code} ({msg})")
