@@ -1,8 +1,9 @@
 """State that crosses between the JAX reference and the port.
 
-The codec has no weights. What the two packages share is the FLCT bytes
-and the k-table seed; this module turns the reference's numpy seed into
-the port's device tensor.
+The codec has no weights. What the two packages share is the container
+bytes, the FLCT k-table seed and the FLCS codeword symbols; this module
+turns the reference's numpy forms of the last two into the port's device
+tensors.
 """
 
 from __future__ import annotations
@@ -11,6 +12,7 @@ import numpy as np
 import torch
 
 from felics_tpu_torch.device import resolve_device
+from felics_tpu_torch.ops.analysis import Symbols
 
 
 def prior_from_reference(prior_np: np.ndarray, n_tiles: int, device="cuda"):
@@ -29,3 +31,13 @@ def prior_from_reference(prior_np: np.ndarray, n_tiles: int, device="cuda"):
         raise ValueError("prior values do not fit int32")
     host = torch.from_numpy(np.ascontiguousarray(prior, dtype=np.int32))
     return host.to(resolve_device(device))
+
+
+def symbols_from_reference(symbols, device="cuda") -> Symbols:
+    """The reference's FLCS ``Symbols`` (felics_tpu.ops.analysis; fields
+    as numpy arrays, uint32 values and int32 lengths, any shape) as the
+    port's int64 ``Symbols`` on ``device``."""
+    dev = resolve_device(device)
+    return Symbols(*(
+        torch.from_numpy(np.asarray(f).astype(np.int64)).to(dev) for f in symbols
+    ))

@@ -23,7 +23,7 @@ from typing import Optional
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
-SOURCES = ("flct_encode.cu", "flct_decode.cu")
+SOURCES = ("flct_encode.cu", "flct_decode.cu", "flcs_kscan.cu", "flcs_decode.cu")
 HEADERS = ("flct_common.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -55,7 +55,7 @@ def nvcc_path() -> str:
         if os.path.isfile(c) and os.access(c, os.X_OK):
             return c
     raise RuntimeError(
-        "nvcc not found (set CUDA_HOME or put nvcc on PATH); the FLCT CUDA "
+        "nvcc not found (set CUDA_HOME or put nvcc on PATH); the CUDA "
         "kernels are built from felics_tpu_torch/csrc at first use"
     )
 
@@ -108,6 +108,12 @@ def library() -> ctypes.CDLL:
         lib.flct_decode.restype = i32
         lib.flct_decode.argtypes = [
             vp, vp, i64, vp, i32, i32, i32, i32, i32, i32, i32, i32, i64, vp,
+        ]
+        lib.flcs_kscan.restype = i32
+        lib.flcs_kscan.argtypes = [vp, vp, vp, vp, i32, i64, i32, i32, vp]
+        lib.flcs_decode.restype = i32
+        lib.flcs_decode.argtypes = [
+            vp, i64, i32, i32, i32, i32, i32, i32, i32, vp, i64, vp, vp, vp, vp,
         ]
         lib.flct_error_string.restype = ctypes.c_char_p
         lib.flct_error_string.argtypes = [i32]

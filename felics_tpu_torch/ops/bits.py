@@ -1,4 +1,4 @@
-"""Bit helpers for the plain PyTorch versions of the tile codec.
+"""Bit helpers for the plain PyTorch versions of the kernels.
 
 Torch's uint32 lacks most operators on the CPU (no ``>>``, ``<<``, ``+``,
 ``>`` or ``min``) and its int32 ``>>`` is arithmetic, so the plain versions
@@ -44,3 +44,24 @@ def to_i32_bits(v: torch.Tensor) -> torch.Tensor:
 def to_u32_value(v: torch.Tensor) -> torch.Tensor:
     """int32 bit patterns -> their unsigned values as int64."""
     return v.to(torch.int64) & MASK32
+
+
+def words_to_bytes(words: torch.Tensor) -> torch.Tensor:
+    """Integer words holding 32-bit patterns -> their big-endian uint8
+    bytes, word after word."""
+    be = torch.stack([(words >> s) & 255 for s in (24, 16, 8, 0)], dim=-1)
+    return be.to(torch.uint8).reshape(-1)
+
+
+def wrap32(v: torch.Tensor) -> torch.Tensor:
+    """int64 v reduced to int32 two's-complement range (still int64): the
+    wrap-around of the reference's int32 arithmetic."""
+    return ((v + (1 << 31)) & MASK32) - (1 << 31)
+
+
+def k_select(row: torch.Tensor, ks: torch.Tensor) -> torch.Tensor:
+    """Per-lane column of the smallest cost; ties go to the LARGEST k (the
+    reference's ``(K-1) - argmin(row[::-1])``, which torch.argmin does not
+    promise)."""
+    minv = row.min(dim=-1, keepdim=True).values
+    return torch.where(row == minv, ks, torch.full_like(row, -1)).max(-1).values

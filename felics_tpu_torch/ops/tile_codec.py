@@ -28,7 +28,7 @@ from felics_tpu.config import QCTX_CAP, CodingConfig
 from felics_tpu.core.context import neighbour_indices
 from felics_tpu_torch.ops import _build
 from felics_tpu_torch.ops.bits import (
-    MASK32, bit_length, shl32, shr32, to_i32_bits, to_u32_value,
+    MASK32, bit_length, k_select, shl32, shr32, to_i32_bits, to_u32_value,
 )
 
 # Kernel launches made by encode_tiles / decode_tiles (plain-version calls
@@ -130,12 +130,6 @@ def _pow2(e: torch.Tensor) -> torch.Tensor:
     return torch.ones_like(e) << e
 
 
-def _k_select(row: torch.Tensor, ks: torch.Tensor) -> torch.Tensor:
-    """Per-lane column of the smallest cost; ties go to the LARGEST k."""
-    minv = row.min(dim=-1, keepdim=True).values
-    return torch.where(row == minv, ks, torch.full_like(row, -1)).max(-1).values
-
-
 # ---------------------------------------------------------------------------
 # Encode
 # ---------------------------------------------------------------------------
@@ -201,7 +195,7 @@ def encode_tiles_ref(
             ctx = h - l
             qc = bit_length(ctx, nb - 1)  # = min(bit_length(ctx), nb - 1)
             row = table[lanes, qc]
-            k = _k_select(row, ks)
+            k = k_select(row, ks)
             in_r = (p >= l) & (p <= h)
             below = p < l
             v = torch.where(below, l - p - 1, p - h - 1)
@@ -347,7 +341,7 @@ def decode_tiles_ref(
             # Out of range: sign bit, unary run (stops at 32*W), k bits.
             above = get(pos + 1, 1) == 1
             row = table[lanes, qc]
-            k = _k_select(row, ks)
+            k = k_select(row, ks)
             q = torch.zeros_like(pos)
             p = pos + 2
             active = ~first

@@ -26,45 +26,18 @@ from felics_tpu import errors
 from felics_tpu.api import header_for_array
 from felics_tpu.config import CodingConfig, TileConfig, tiled_config_for_depth
 from felics_tpu.core.color import rgb_to_ycocg, ycocg_to_rgb
-from felics_tpu.core.context import neighbour_indices
 from felics_tpu.format import ColorType, Header, PixelDepth
-from felics_tpu_torch.device import resolve_device
+from felics_tpu_torch.device import (
+    neighbours, resolve_device, to_host, upload_image,
+)
 from felics_tpu_torch.ops import tile_codec
-from felics_tpu_torch.ops.bits import bit_length
+from felics_tpu_torch.ops.bits import bit_length, words_to_bytes
 from felics_tpu_torch.parallel import flct
-
-_NP_DTYPES = {
-    torch.bool: np.bool_, torch.uint8: np.uint8, torch.int32: np.int32,
-    torch.int64: np.int64,
-}
-
-
-def to_host(*tensors: torch.Tensor) -> List[np.ndarray]:
-    """Copy several tensors to the host in ONE transfer (their bytes are
-    concatenated on the device), as numpy arrays of their own dtype/shape."""
-    flat = [t.contiguous().reshape(-1).view(torch.uint8) for t in tensors]
-    buf = torch.cat(flat).cpu().numpy()
-    out, off = [], 0
-    for t, f in zip(tensors, flat):
-        n = f.numel()
-        out.append(buf[off : off + n].view(_NP_DTYPES[t.dtype]).reshape(t.shape))
-        off += n
-    return out
 
 
 # ---------------------------------------------------------------------------
 # Encode
 # ---------------------------------------------------------------------------
-
-
-def upload_image(image: np.ndarray, device: torch.device) -> torch.Tensor:
-    """(H, W[, 3]) uint8/uint16 image -> int32 tensor on ``device``, moving
-    the image's own bytes (uint16 travels as int16 and is masked back)."""
-    image = np.ascontiguousarray(image)
-    if image.dtype == np.uint16:
-        t = torch.from_numpy(image.view(np.int16)).to(device)
-        return t.to(torch.int32) & 0xFFFF
-    return torch.from_numpy(image).to(device).to(torch.int32)
 
 
 def image_tiles(imgs: torch.Tensor, th: int, tw: int) -> torch.Tensor:
@@ -103,10 +76,7 @@ def k0_prior(
     nt, c, t = tiles.shape
     dev = tiles.device
     nb, K = tile_codec.num_buckets(cfg), cfg.num_k
-    a_idx, b_idx = (
-        torch.from_numpy(i.astype(np.int64)).to(dev)
-        for i in neighbour_indices(th, tw, xp=np)
-    )
+    a_idx, b_idx = neighbours(th, tw, dev)
     x = tiles.to(torch.int64)
     v1, v2 = x[..., a_idx], x[..., b_idx]
     low = torch.minimum(v1, v2)
@@ -160,9 +130,7 @@ def aligned_payload(words: torch.Tensor, bits: torch.Tensor) -> torch.Tensor:
     n, W = words.shape
     used = (bits + 31) // 32
     keep = torch.arange(W, device=words.device).unsqueeze(0) < used.unsqueeze(1)
-    w = words[keep]
-    be = torch.stack([(w >> 24) & 255, (w >> 16) & 255, (w >> 8) & 255, w & 255], 1)
-    return be.to(torch.uint8).reshape(-1)
+    return words_to_bytes(words[keep])
 
 
 def encode_group(

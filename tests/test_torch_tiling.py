@@ -17,6 +17,7 @@ from felics_tpu.config import TileConfig, tiled_config_for_depth
 from felics_tpu.format import ColorType, PixelDepth
 from felics_tpu.parallel import tiling as ref
 from felics_tpu_torch import compress_tiled_bytes, decompress_tiled_bytes
+from felics_tpu_torch.device import to_host, upload_image
 from felics_tpu_torch.ops import tile_codec as tcd
 from felics_tpu_torch.parallel import flct, tiling
 
@@ -148,7 +149,7 @@ def test_width_relaunch_on_overflow(monkeypatch):
     checker = (np.arange(16)[:, None] + np.arange(16)[None, :]) % 2 == 1
     img = np.where(checker, rng.integers(240, 256, (16, 16)),
                    rng.integers(0, 16, (16, 16))).astype(np.uint8)
-    tiles = tiling.image_tiles(tiling.upload_image(img, CPU)[None], 8, 8)
+    tiles = tiling.image_tiles(upload_image(img, CPU)[None], 8, 8)
     prior = torch.full((1, 6, 6), 1 << 20, dtype=torch.int32)
     prior[..., 0] = 0  # hold every bucket at k = 0: ~230 bits a pixel
     hint = tcd.width_hint(cfg, 64, 1)
@@ -165,7 +166,7 @@ def test_image_tiles_match_reference(shape, depth_max):
     img = _image(shape, depth_max, 6, False)
     color = ColorType.RGB if img.ndim == 3 else ColorType.GRAY
     want, _, _ = ref._prepare_tiles(img, color, 4, 5)
-    got = tiling.image_tiles(tiling.upload_image(img, CPU)[None], 4, 5)
+    got = tiling.image_tiles(upload_image(img, CPU)[None], 4, 5)
     assert np.array_equal(got.numpy(), want)
 
 
@@ -213,7 +214,7 @@ def test_to_host_round_trips_mixed_dtypes():
     ts = [torch.tensor([True, False]), torch.arange(5, dtype=torch.int64),
           torch.tensor([[1, -2], [3, 4]], dtype=torch.int32),
           torch.tensor([7, 255], dtype=torch.uint8)]
-    for t, h in zip(ts, tiling.to_host(*ts)):
+    for t, h in zip(ts, to_host(*ts)):
         assert np.array_equal(h, t.numpy()) and h.dtype == t.numpy().dtype
 
 
