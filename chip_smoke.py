@@ -54,6 +54,15 @@ import time
 REPO = os.path.dirname(os.path.abspath(__file__))
 TILE = 32
 CORRUPT_SECONDS = 60.0  # limit for one corrupt-container decode
+# H100 SXM peaks (NVIDIA's data sheet, at a 700 W limit): HBM3 bytes a
+# second, and float32 operations a second outside the tensor cores, the
+# nearest entry to the kernels' 32-bit integer operations.
+HBM_BYTES_S = 3.35e12
+SCALAR_OPS_S = 67e12
+# Integer operations counted per pixel step of K1, K2 and K4 (neighbours,
+# context, marker, code, table), and per k-table entry of a K3 update.
+OPS_PER_STEP = 10
+OPS_PER_K_ENTRY = 4
 
 
 def fail(msg: str) -> None:
@@ -101,6 +110,14 @@ def checker_noise(h, w, seed, np):
     return np.where(checker, bright, dark).astype(np.uint8)
 
 
+def bound(nbytes: int, ops: int):
+    """(least ms the card could take, what bounds it): each input byte read
+    once and each output byte written once at HBM_BYTES_S, against the
+    operations at SCALAR_OPS_S."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_S * 1e3, ops / SCALAR_OPS_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
 def cuda_ms(torch, fn, reps: int) -> float:
     """Mean ms of fn() over `reps` runs, from CUDA events (one warm run)."""
     fn()
@@ -134,13 +151,13 @@ def need_gpu_and_repo():
 def main() -> None:
     np, torch = need_gpu_and_repo()
 
-    from felics_tpu import errors
-    from felics_tpu.api import header_for_array
-    from felics_tpu.config import TileConfig, tiled_config_for_depth
-    from felics_tpu.format import PixelDepth
-    from felics_tpu_torch import compress_tiled_batch, decompress_tiled_batch
-    from felics_tpu_torch import decompress_tiled_bytes
+    from felics_tpu_torch import (
+        compress_tiled_batch, decompress_tiled_batch, decompress_tiled_bytes,
+        errors, native,
+    )
+    from felics_tpu_torch.config import TileConfig, tiled_config_for_depth
     from felics_tpu_torch.device import upload_image
+    from felics_tpu_torch.format import PixelDepth, header_for_array
     from felics_tpu_torch.ops import _build
     from felics_tpu_torch.ops import tile_codec as tcd
     from felics_tpu_torch.parallel import flct, tiling
@@ -234,7 +251,6 @@ def main() -> None:
     # ---- phase 3: the main path at full size ----------------------------
     subprocess.run([sys.executable, os.path.join(REPO, "native", "build.py")],
                    check=True, capture_output=True)
-    from felics_tpu.native import runtime
 
     classes = [
         ("gray8", synth((512, 512), np.uint8, 12, 6, np)),
@@ -284,8 +300,7 @@ def main() -> None:
         for i, (im, out) in enumerate(zip(images, outs)):
             if out.dtype != im.dtype or not np.array_equal(out, im):
                 fail(f"{name} image {i}: round trip is not exact")
-            native = runtime.compress_tiled(im, header_for_array(im), TILE, TILE)
-            if blobs[i] != native:
+            if blobs[i] != native.compress_tiled(im, header_for_array(im), TILE, TILE):
                 fail(f"{name} image {i}: container differs from the native codec")
         px = sum(im.shape[0] * im.shape[1] for im in images)
         raw = sum(im.nbytes for im in images)
@@ -300,6 +315,21 @@ def main() -> None:
     launches = {"encode": tcd.ENCODE_LAUNCHES, "decode": tcd.DECODE_LAUNCHES}
     if not (launches["encode"] and launches["decode"]):
         fail(f"the main path did not launch both kernels: {launches}")
+    # Launches in one batched call of each direction (the gray8 batch).
+    tcd.ENCODE_LAUNCHES = tcd.DECODE_LAUNCHES = 0
+    g8_blobs = compress_tiled_batch(g8, tc, device=dev)
+    per_call = {"encode": tcd.ENCODE_LAUNCHES}
+    decompress_tiled_batch(g8_blobs, device=dev)
+    per_call["decode"] = tcd.DECODE_LAUNCHES
+    # Bounds at the kernels' gray8 shapes: the words a stream needs, the
+    # tiles and the per-tile priors.
+    used = int(((bits + 31) // 32).sum()) * 4
+    flct_bounds = {
+        "encode": bound(tiles.numel() * 4 + prior.numel() * 4 + used + nt * 8,
+                        OPS_PER_STEP * tiles.numel()),
+        "decode": bound(used + prior.numel() * 4 + tiles.numel() * 4,
+                        OPS_PER_STEP * tiles.numel()),
+    }
 
     # ---- phase 4: corrupt payloads --------------------------------------
     rng = np.random.default_rng(1)
@@ -325,8 +355,8 @@ def main() -> None:
     say("4 corrupt", **outcomes)
 
     # ---- phase 5: the FLCS kernels against their plain versions ---------
-    from felics_tpu.config import config_for_depth
     from felics_tpu_torch import api
+    from felics_tpu_torch.config import config_for_depth
     from felics_tpu_torch.core import codec
     from felics_tpu_torch.ops import analysis as flcs_an
     from felics_tpu_torch.ops import kscan as flcs_ks
@@ -336,14 +366,20 @@ def main() -> None:
         return hd, config_for_depth(hd.pixel_depth), codec._image_channels(images, hd, dev)
 
     def check_kscan(name, chans, h, w, cfg):
+        """K3 against kscan_ref; returns the max abs error, the analysis,
+        the sorted updates and the ms the plain version took."""
         a = flcs_an.analyze_channel(chans, h, w)
         su = flcs_ks.sort_updates(a.context, a.oor)
         got = flcs_ks.kscan(a.residual, su, cfg)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
         want = flcs_ks.kscan_ref(a.residual, su, cfg)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
         err = int((got.long() - want).abs().max())
         if err:
             fail(f"{name}: K3 differs from its plain version (max_abs_err {err})")
-        return err, a, su
+        return err, a, su, plain_ms
 
     def check_decode(name, words, h, w, cfg, c, plains):
         """K4 against each plain version in ``plains``; returns the max abs
@@ -377,7 +413,7 @@ def main() -> None:
     for name, img in flcs_cases:
         hd, cfg, chans = lanes_of([img])
         h, w, c = hd.height, hd.width, hd.num_channels
-        ek, _, _ = check_kscan(name, chans, h, w, cfg)
+        ek, _, _, _ = check_kscan(name, chans, h, w, cfg)
         payload = api.compress_image_bytes(img, device=dev)[14:]
         corrupt = bytearray(payload)
         corrupt[len(corrupt) // 2] ^= 0xFF
@@ -396,7 +432,7 @@ def main() -> None:
     # (kernel: mean of 10 launches; plain: 1 run).
     small = [small_image((64, 64), 255, 60 + i, True, np) for i in range(4)]
     hd, cfg, chans = lanes_of(small)
-    e, a, su = check_kscan("gray8 4x64^2", chans, 64, 64, cfg)
+    e, a, su, _ = check_kscan("gray8 4x64^2", chans, 64, 64, cfg)
     words = words_on_card([b[14:] for b in api.compress_images_bytes(small, device=dev)])
     d, _, _ = check_decode("gray8 4x64^2", words, 64, 64, cfg, 1,
                            (codec.decode_scan_ref, codec.decode_scan_scalar))
@@ -413,40 +449,93 @@ def main() -> None:
         decode_scalar_ms=cuda_ms(
             torch, lambda: codec.decode_scan_scalar(words, 64, 64, cfg, 1), 1))
 
-    # At the main path's shapes, class by class: K3 against kscan_ref on the
-    # whole batch; K4 against decode_scan_scalar on the batch's word rows and
-    # one row with flipped bytes (the tensor plain version takes ~3 ms a
-    # pixel on the card, the scalar one a few microseconds).
+    # K4's k-table zeroing alone: 2 lanes of a 1x2 image decode no pixel
+    # step, so the launch is the zeroing (16-bit: 8.4 MB of global scratch
+    # per lane; 8-bit: 16 KB of shared memory) and the two raw words.
+    zero_ms = {}
+    for name, img in (("gray16", np.zeros((1, 2), np.uint16)),
+                      ("gray8", np.zeros((1, 2), np.uint8))):
+        hd, cfg, _ = lanes_of([img])
+        wz = words_on_card([api.compress_image_bytes(img, device=dev)[14:]] * 2)
+        zero_ms[name] = cuda_ms(torch, lambda: codec.decode_scan(wz, 1, 2, cfg, 1), 5)
+
+    # A row too wide for K4's shared ring: the ring moves to global scratch.
+    wide = small_image((2, 60000), 255, 58, True, np)
+    hd, cfg, chans = lanes_of([wide])
+    _, _, ring_shared = codec.decode_layout(
+        cfg.num_k, cfg.max_context, hd.width, _build.library().flcs_decode_smem_limit())
+    if ring_shared:
+        fail("the 2x60000 case did not overflow K4's shared row ring")
+    ek, _, _, _ = check_kscan("gray8 2x60000", chans, hd.height, hd.width, cfg)
+    payload = api.compress_image_bytes(wide, device=dev)[14:]
+    ed, (planes, _, ov), _ = check_decode(
+        "gray8 2x60000", words_on_card([payload]), hd.height, hd.width, cfg, 1,
+        (codec.decode_scan_scalar,))
+    if not torch.equal(planes.reshape(-1), chans.reshape(-1)) or bool(ov[0]):
+        fail("gray8 2x60000: K4 did not decode the stream back to its planes")
+    flcs_errs["kscan"], flcs_errs["decode"] = max(flcs_errs["kscan"], ek), max(flcs_errs["decode"], ed)
+    say("5 flcs kernels", case="gray8 2x60000 (ring in global scratch)",
+        kscan_err=ek, decode_err=ed, table_zero_ms=zero_ms, nvidia_smi=card)
+
+    # At the main path's shapes (phase 6's batches), class by class: K3
+    # against kscan_ref on the whole batch; K4 against decode_scan_scalar on
+    # the batch's word rows (one lane per image, as phase 6 decodes them),
+    # then on one row with flipped bytes (the tensor plain version takes
+    # ~3 ms a pixel on the card, the scalar one a few microseconds). Both
+    # kernels timed there with CUDA events: mean of 10 warm launches (K3)
+    # and of 5 (K4); each plain version over its one comparison run.
     flcs_classes = [
         ("gray8", classes[0][1][:4]),
         ("rgb8", classes[1][1][:2]),
         ("gray16", classes[2][1][:2]),
     ]
+    full = {}
     for name, images in flcs_classes:
         hd, cfg, chans = lanes_of(images)
         h, w, c = hd.height, hd.width, hd.num_channels
-        t0 = time.perf_counter()
-        e, a, su = check_kscan(f"{name} full", chans, h, w, cfg)
-        k3_compare_s = time.perf_counter() - t0
+        e, a, su, k3_plain_ms = check_kscan(f"{name} full", chans, h, w, cfg)
         k3_ms = cuda_ms(torch, lambda: flcs_ks.kscan(a.residual, su, cfg), 10)
         payloads = [b[14:] for b in api.compress_images_bytes(images, device=dev)]
+        words = words_on_card(payloads)
+        d, (planes, end, ov), k4_plain_s = check_decode(
+            f"{name} full", words, h, w, cfg, c, (codec.decode_scan_scalar,))
+        if not torch.equal(planes.reshape(chans.shape), chans) or bool(ov.any()):
+            fail(f"{name}: K4 on the batch's word rows did not give its planes")
+        k4_ms = cuda_ms(torch, lambda: codec.decode_scan(words, h, w, cfg, c), 5)
         corrupt = bytearray(payloads[0])
         mid = len(corrupt) // 2
         corrupt[mid : mid + 3] = bytes(b ^ 0xA5 for b in corrupt[mid : mid + 3])
-        words = words_on_card(payloads + [bytes(corrupt)])
-        d, (planes, end, ov), k4_compare_s = check_decode(
-            f"{name} full", words, h, w, cfg, c, (codec.decode_scan_scalar,))
-        if not torch.equal(planes[: len(images)].reshape(chans.shape), chans):
-            fail(f"{name}: K4 on the batch's word rows did not give its planes")
-        flcs_errs["kscan"], flcs_errs["decode"] = max(flcs_errs["kscan"], e), max(flcs_errs["decode"], d)
+        dc, (_, c_end, c_ov), _ = check_decode(
+            f"{name} corrupt row", words_on_card(payloads + [bytes(corrupt)]),
+            h, w, cfg, c, (codec.decode_scan_scalar,))
+        flcs_errs["kscan"] = max(flcs_errs["kscan"], e)
+        flcs_errs["decode"] = max(flcs_errs["decode"], d, dc)
+        n_oor = int(su.num_oor.sum())
+        used = int(((end + 31) // 32).sum()) * 4
+        full[name] = {
+            "kscan_ms": k3_ms, "kscan_plain_ms": k3_plain_ms,
+            # in: each update's residual and pixel index; out: k per pixel
+            "kscan_bound": bound(n_oor * 12 + chans.numel() * 4,
+                                 n_oor * OPS_PER_K_ENTRY * cfg.num_k),
+            "decode_ms": k4_ms, "decode_plain_ms": k4_plain_s * 1e3,
+            # in: the words the streams use; out: planes, end bits, flags
+            "decode_bound": bound(used + planes.numel() * 4 + len(images) * 12,
+                                  OPS_PER_STEP * planes.numel()),
+        }
+        steps = c * (h * w - 2)
         say("5 flcs kernels at full shape", nvidia_smi=card, cls=name,
             lanes=chans.shape[0], kscan_err=e, kscan_ms=k3_ms,
-            kscan_plain_compare_s=k3_compare_s,
+            kscan_plain_ms=k3_plain_ms, kscan_bound_ms=full[name]["kscan_bound"][0],
+            out_of_range_updates=n_oor,
             segments=int(((su.rank == 0) & (torch.arange(su.rank.shape[1], device=dev)
                                              < su.num_oor[:, None])).sum()),
-            longest_segment=int(su.max_rank.max()), decode_lanes=words.shape[0],
-            decode_err=d, decode_scalar_compare_s=k4_compare_s,
-            corrupt_row_end_bits=int(end[-1]), corrupt_row_overrun=bool(ov[-1]))
+            longest_segment=int(su.max_rank.max()),
+            kscan_us_per_longest_update=k3_ms * 1e3 / max(int(su.max_rank.max()), 1),
+            decode_lanes=words.shape[0], decode_err=max(d, dc), decode_ms=k4_ms,
+            decode_plain_ms=k4_plain_s * 1e3,
+            decode_bound_ms=full[name]["decode_bound"][0],
+            decode_us_per_step=k4_ms * 1e3 / steps,
+            corrupt_row_end_bits=int(c_end[-1]), corrupt_row_overrun=bool(c_ov[-1]))
 
     # ---- phase 6: the FLCS main path at full size ------------------------
     flcs_ks.LAUNCHES = 0
@@ -459,10 +548,10 @@ def main() -> None:
         dec_ms = cuda_ms(torch, lambda: api.decompress_images_bytes(blobs, device=dev), 1)
         outs = api.decompress_images_bytes(blobs, device=dev)
         t0 = time.perf_counter()
-        natives = [runtime.compress(im, header_for_array(im)) for im in images]
+        natives = [native.compress(im, header_for_array(im)) for im in images]
         t1 = time.perf_counter()
         for b in natives:
-            runtime.decompress(b, header_for_array(images[0]))
+            native.decompress(b)
         t2 = time.perf_counter()
         from_native = api.decompress_images_bytes(natives, device=dev)
         for i, im in enumerate(images):
@@ -487,6 +576,13 @@ def main() -> None:
     flcs_launches = {"kscan": flcs_ks.LAUNCHES, "decode": codec.DECODE_LAUNCHES}
     if not (flcs_launches["kscan"] and flcs_launches["decode"]):
         fail(f"the FLCS main path did not launch both kernels: {flcs_launches}")
+    # Launches in one call of each direction (the gray8 batch).
+    flcs_ks.LAUNCHES = codec.DECODE_LAUNCHES = 0
+    g8_images, g8_blobs = flcs_blobs["gray8"]
+    api.compress_images_bytes(g8_images, device=dev)
+    flcs_per_call = {"kscan": flcs_ks.LAUNCHES}
+    api.decompress_images_bytes(g8_blobs, device=dev)
+    flcs_per_call["decode"] = codec.DECODE_LAUNCHES
     flct_img = classes[0][1][0]
     routed = api.compress_image_bytes(flct_img, container="flct", tile=tc, device=dev)
     if routed != tiling.compress_tiled_bytes(flct_img, tc, device=dev):
@@ -517,29 +613,40 @@ def main() -> None:
             outcomes[f"{name}[{i}]"] = f"{outcome} {secs:.3f}s"
     say("4 corrupt flcs", **outcomes)
 
-    if any(m == "jax" or m.startswith("jax.") for m in sys.modules):
-        fail("jax was imported")
+    foreign = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "felics_tpu")]
+    if foreign:
+        fail(f"modules of JAX or of the JAX package were imported: {foreign[:5]}")
+    def entry(name, replaces, n_launches, per_call, err, ms, plain_ms, bnd, **extra):
+        return {"name": name, "route": "cuda",
+                "source": f"felics_tpu_torch/csrc/{name}.cu", "replaces": replaces,
+                "launches": n_launches, "max_abs_err": err, "ms": ms,
+                "plain_ms": plain_ms, "bound_ms": bnd[0], "bound_by": bnd[1],
+                # No PyTorch call computes FELICS coding.
+                "library_ms": None, "full_shape_ms": ms,
+                "launches_per_call": per_call, **extra}
+
+    flct_shape = f"gray8 12x512^2, tile {TILE}"
+    by_class = {key: {cls: full[cls][key] for cls in full}
+                for key in ("kscan_ms", "decode_ms")}
     kernels = [
-        {"name": "flct_encode", "route": "cuda",
-         "source": "felics_tpu_torch/csrc/flct_encode.cu",
-         "replaces": "felics_tpu/ops/pallas_codec.py:270",
-         "launches": launches["encode"], "max_abs_err": errs["encode"],
-         "ms": timing["encode"][0], "plain_ms": timing["encode"][1]},
-        {"name": "flct_decode", "route": "cuda",
-         "source": "felics_tpu_torch/csrc/flct_decode.cu",
-         "replaces": "felics_tpu/ops/pallas_codec.py:805",
-         "launches": launches["decode"], "max_abs_err": errs["decode"],
-         "ms": timing["decode"][0], "plain_ms": timing["decode"][1]},
-        {"name": "flcs_kscan", "route": "cuda",
-         "source": "felics_tpu_torch/csrc/flcs_kscan.cu",
-         "replaces": "felics_tpu/ops/kscan.py:108",
-         "launches": flcs_launches["kscan"], "max_abs_err": flcs_errs["kscan"],
-         "ms": flcs_timing["kscan"][0], "plain_ms": flcs_timing["kscan"][1]},
-        {"name": "flcs_decode", "route": "cuda",
-         "source": "felics_tpu_torch/csrc/flcs_decode.cu",
-         "replaces": "felics_tpu/core/jax_codec.py:303",
-         "launches": flcs_launches["decode"], "max_abs_err": flcs_errs["decode"],
-         "ms": flcs_timing["decode"][0], "plain_ms": flcs_timing["decode"][1]},
+        entry("flct_encode", "felics_tpu/ops/pallas_codec.py:270", launches["encode"],
+              per_call["encode"], errs["encode"], timing["encode"][0],
+              timing["encode"][1], flct_bounds["encode"], shape=flct_shape),
+        entry("flct_decode", "felics_tpu/ops/pallas_codec.py:805", launches["decode"],
+              per_call["decode"], errs["decode"], timing["decode"][0],
+              timing["decode"][1], flct_bounds["decode"], shape=flct_shape),
+        entry("flcs_kscan", "felics_tpu/ops/kscan.py:108", flcs_launches["kscan"],
+              flcs_per_call["kscan"], flcs_errs["kscan"], full["gray8"]["kscan_ms"],
+              full["gray8"]["kscan_plain_ms"], full["gray8"]["kscan_bound"],
+              shape="gray8 4x512^2", full_shape_ms_by_class=by_class["kscan_ms"],
+              small_shape="gray8 4x64^2", small_ms=flcs_timing["kscan"][0],
+              small_plain_ms=flcs_timing["kscan"][1]),
+        entry("flcs_decode", "felics_tpu/core/jax_codec.py:303", flcs_launches["decode"],
+              flcs_per_call["decode"], flcs_errs["decode"], full["gray8"]["decode_ms"],
+              full["gray8"]["decode_plain_ms"], full["gray8"]["decode_bound"],
+              shape="gray8 4x512^2", full_shape_ms_by_class=by_class["decode_ms"],
+              table_zero_ms=zero_ms, small_shape="gray8 4x64^2",
+              small_ms=flcs_timing["decode"][0], small_plain_ms=flcs_timing["decode"][1]),
     ]
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
@@ -557,11 +664,11 @@ def stages() -> None:
     np, torch = need_gpu_and_repo()
     from torch.profiler import ProfilerActivity, profile
 
-    from felics_tpu.config import config_for_depth
-    from felics_tpu.format import read_header_bytes
     from felics_tpu_torch import api
+    from felics_tpu_torch.config import config_for_depth
     from felics_tpu_torch.core import codec
     from felics_tpu_torch.device import to_host
+    from felics_tpu_torch.format import read_header_bytes
     from felics_tpu_torch.ops import analysis, bitpack
     from felics_tpu_torch.ops import kscan as flcs_ks
     from felics_tpu_torch.ops.analysis import Symbols

@@ -5,9 +5,10 @@ the reference-compatible FLCS single stream and the FLCT tiled container,
 both directions, one image or a batch. The two Pallas kernels of the FLCT
 tile codec and the two serial scans of FLCS (the adaptive-k scan and the
 per-pixel decoder) are hand-written CUDA kernels here (``csrc/``, built
-for ``sm_90a`` at first use); the byte formats, the errors and the configs
-are shared with ``felics_tpu`` and imported from it. This package imports
-``torch`` and never ``jax``.
+for ``sm_90a`` at first use). The byte formats, the errors and the coding
+configs are the port's own copies (``format``, ``errors``, ``config``):
+this package imports ``torch`` and nothing of ``jax`` or ``felics_tpu``.
+Corrupt input raises ``DecompressionError`` (``felics_tpu_torch.errors``).
 
 Entry points, each taking ``device`` (default ``"cuda"``, which raises on a
 host without CUDA; pass ``device="cpu"`` for the plain PyTorch versions):
@@ -34,6 +35,7 @@ from felics_tpu_torch.api import (
     probe,
 )
 from felics_tpu_torch.device import resolve_device
+from felics_tpu_torch.errors import DecompressionError
 from felics_tpu_torch.parallel.batch import (
     compress_tiled_batch,
     decompress_tiled_batch,
@@ -44,6 +46,7 @@ from felics_tpu_torch.parallel.tiling import (
 )
 
 __all__ = [
+    "DecompressionError",
     "compress_image",
     "compress_image_bytes",
     "compress_images_bytes",

@@ -6,8 +6,7 @@ reference-compatible single stream, the default) or ``"flct"`` (the tiled
 container, with ``tile``). In place of the reference's ``backend`` every
 function takes ``device`` (default ``"cuda"``, which raises on a host
 without CUDA; ``"cpu"`` runs the plain PyTorch versions): this package is
-the device backend. The scalar oracle and the native C++ codec stay
-reachable through ``felics_tpu.api``.
+the device backend; the reference's scalar oracle is not ported.
 """
 
 from __future__ import annotations
@@ -17,10 +16,9 @@ from typing import BinaryIO, List, Optional
 
 import numpy as np
 
-from felics_tpu.api import header_for_array
-from felics_tpu.config import TileConfig
-from felics_tpu.format import read_header
+from felics_tpu_torch.config import TileConfig
 from felics_tpu_torch.core import codec
+from felics_tpu_torch.format import header_for_array, read_header
 from felics_tpu_torch.parallel import batch, flct, tiling
 
 __all__ = [

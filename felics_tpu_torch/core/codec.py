@@ -9,13 +9,13 @@ Encode, per group of same-shape images (lanes = every channel of every
 image, image-major then channel-major): upload, YCoCg on the device,
 analysis, the adaptive-k scan (kernel K3 on CUDA), symbols, per-image
 byte-aligned offsets, the bit packer, one device-to-host copy of the sizes
-and one of the payload. Degenerate dims (fewer than two pixels) take the
-scalar oracle, as the reference does.
+and one of the payload. Degenerate dims (fewer than two pixels) carry raw
+32-bit words only, written and read on the host.
 
 Decode, per group of same-shape containers (lanes = images): one upload of
 the zero-padded word rows, the per-pixel scan (kernel K4 on CUDA, one
-thread per image), inverse YCoCg and range flags on the device, one
-device-to-host copy. A lane whose cursor ends past its payload, or whose
+block per image, one thread of it walking the pixels), inverse YCoCg and
+range flags on the device, one device-to-host copy. A lane whose cursor ends past its payload, or whose
 unary run ran off the words, raises ``errors.IoError``; a value outside the
 depth raises ``errors.InvalidValue``.
 
@@ -30,18 +30,15 @@ from typing import Dict, List, Sequence, Tuple
 import numpy as np
 import torch
 
-from felics_tpu import errors
-from felics_tpu.api import decompress_image_bytes as _api_decompress
-from felics_tpu.api import header_for_array
-from felics_tpu.coding.bitio import BitWriter
-from felics_tpu.config import CodingConfig, config_for_depth
-from felics_tpu.core import oracle
-from felics_tpu.core.color import rgb_to_ycocg, ycocg_to_rgb
-from felics_tpu.core.context import neighbour_indices
-from felics_tpu.format import (
-    ColorType, Header, PixelDepth, header_bytes, read_header_bytes,
-)
+from felics_tpu_torch import errors
+from felics_tpu_torch.config import CodingConfig, config_for_depth
+from felics_tpu_torch.core.color import rgb_to_ycocg, ycocg_to_rgb
+from felics_tpu_torch.core.context import neighbour_indices
 from felics_tpu_torch.device import resolve_device, to_host, upload_image
+from felics_tpu_torch.format import (
+    HEADER_SIZE, ColorType, Header, PixelDepth, header_bytes, header_for_array,
+    read_header_bytes,
+)
 from felics_tpu_torch.ops import _build, bitpack
 from felics_tpu_torch.ops.analysis import (
     PHASE_IN_BITS, Symbols, analyze_channel, symbolize,
@@ -123,14 +120,32 @@ def encode_payload(
     """(C, H*W) int32 channel planes of one image, on its device -> the
     byte-aligned FLCS payload."""
     if height * width < 2:
-        # Raw preamble only: the scalar path (reference:
-        # src/compression.rs:92-103).
-        writer = BitWriter()
-        for chan in channels.cpu().numpy():
-            oracle.compress_channel(chan.astype(np.int64), width, height, cfg, writer)
-        writer.byte_align()
-        return writer.getvalue()
+        return _raw_payload(channels)
     return _encode_group(channels, 1, height, width, cfg)[0]
+
+
+def _raw_payload(channels: torch.Tensor) -> bytes:
+    """Payload of an image of fewer than 2 pixels: per channel, its pixel
+    (0 for a zero-area image) and a 0, as raw signed 32-bit big-endian
+    words (reference: src/compression.rs:92-103)."""
+    first = channels[:, :1].cpu().numpy()
+    words = np.zeros((channels.shape[0], 2), ">i4")
+    words[:, : first.shape[1]] = first
+    return words.tobytes()
+
+
+def _decode_raw(data: bytes, header: Header) -> np.ndarray:
+    """Image of a container of fewer than 2 pixels: each channel's two
+    raw words, of which the first is the pixel of a 1x1 image."""
+    c, n = header.num_channels, header.height * header.width
+    if len(data) - HEADER_SIZE < 8 * c:
+        raise errors.IoError("unexpected end of bitstream")
+    raw = np.frombuffer(data, ">i4", count=2 * c, offset=HEADER_SIZE).reshape(c, 2)
+    planes = torch.from_numpy(raw[:, :n].astype(np.int32))[None]
+    img, valid = _channels_to_image(planes, header)
+    if not bool(valid[0]):
+        raise errors.InvalidValue("decoded value does not fit the pixel depth")
+    return img[0].numpy().astype(_DTYPES[header.pixel_depth])
 
 
 def compress_image_bytes(
@@ -198,7 +213,7 @@ def decode_scan_ref(
     ks = torch.arange(K, device=dev)
     limit = 32 * W
     max_ctx = int(cfg.max_context)
-    a_idx, b_idx = neighbour_indices(height, width, xp=np)
+    a_idx, b_idx = neighbour_indices(height, width)
 
     def peek32(pos):
         # An index past the words reads the last word, as the reference's
@@ -283,7 +298,7 @@ def decode_scan_scalar(
     limit = 32 * W
     max_ctx = int(cfg.max_context)
     scale = cfg.count_scaling
-    a_idx, b_idx = (i.tolist() for i in neighbour_indices(height, width, xp=np))
+    a_idx, b_idx = (i.tolist() for i in neighbour_indices(height, width))
     out = np.zeros((G, channels, n), np.int32)
     ends, overruns = [0] * G, [False] * G
     for g, row in enumerate(to_u32_value(words).tolist()):
@@ -359,6 +374,25 @@ def _wrap(v: int) -> int:
     return ((v + (1 << 31)) & MASK32) - (1 << 31)
 
 
+# A k-table of at most this many bytes sits in shared memory in K4
+# (the 8-bit one, 16,352 bytes); a larger one (16-bit, 8.4 MB) in global
+# scratch.
+TABLE_SMEM_MAX = 48 * 1024
+
+
+def decode_layout(K: int, max_context: int, width: int, smem_limit: int):
+    """Where K4 keeps its state: (k-table row stride, table in shared
+    memory, row ring in shared memory), for a block that may opt in to
+    ``smem_limit`` bytes of dynamic shared memory. The ring of the row
+    above holds width + 1 int32 and takes what the table leaves."""
+    rs = 8 if K <= 8 else 16
+    table_bytes = (max_context + 1) * rs * 4
+    table_shared = table_bytes <= TABLE_SMEM_MAX
+    ring_bytes = (width + 1) * 4
+    ring_shared = (table_bytes if table_shared else 0) + ring_bytes <= smem_limit
+    return rs, table_shared, ring_shared
+
+
 def decode_scan(
     words: torch.Tensor, height: int, width: int, cfg: CodingConfig,
     channels: int,
@@ -377,19 +411,27 @@ def decode_scan(
     G, W = words.shape
     dev = words.device
     words = words.contiguous()
-    stride = -(-(int(cfg.max_context) + 1) * K // 4) * 4
-    tables = torch.empty((G, stride), dtype=torch.int32, device=dev)
     out = torch.empty((G, channels, height * width), dtype=torch.int32, device=dev)
     end = torch.empty(G, dtype=torch.int64, device=dev)
     overrun = torch.empty(G, dtype=torch.int32, device=dev)
     if G == 0:
         return out, end, overrun.bool()
+    max_ctx = int(cfg.max_context)
     cs = -1 if cfg.count_scaling is None else int(cfg.count_scaling)
     lib = _build.library()
     with torch.cuda.device(dev):
+        limit = lib.flcs_decode_smem_limit()
+        if limit < 0:
+            raise RuntimeError("flcs_decode: cannot read the shared memory limit")
+        rs, table_shared, ring_shared = decode_layout(K, max_ctx, width, limit)
+        tables = None if table_shared else torch.empty(
+            (G, (max_ctx + 1) * rs), dtype=torch.int32, device=dev)
+        rings = None if ring_shared else torch.empty(
+            (G, width + 1), dtype=torch.int32, device=dev)
         code = lib.flcs_decode(
-            words.data_ptr(), W, G, channels, height, width, K,
-            int(cfg.max_context), cs, tables.data_ptr(), stride,
+            words.data_ptr(), W, G, channels, height, width, K, max_ctx, cs,
+            rs, int(table_shared), None if tables is None else tables.data_ptr(),
+            int(ring_shared), None if rings is None else rings.data_ptr(),
             out.data_ptr(), end.data_ptr(), overrun.data_ptr(),
             torch.cuda.current_stream().cuda_stream,
         )
@@ -472,7 +514,7 @@ def decompress_images_bytes(
         try:
             header = read_header_bytes(data)
             if _degenerate(header):
-                results[idx] = _api_decompress(data, backend="oracle")
+                results[idx] = _decode_raw(data, header)
                 continue
         except errors.DecompressionError as e:
             if not isolate:
@@ -480,7 +522,7 @@ def decompress_images_bytes(
             results[idx] = e
             continue
         key = (header.height, header.width, header.color_type, header.pixel_depth)
-        groups.setdefault(key, []).append((idx, header, data[14:]))
+        groups.setdefault(key, []).append((idx, header, data[HEADER_SIZE:]))
     for members in groups.values():
         for (idx, _hd, _p), res in zip(members, _decode_group(members, dev)):
             if isinstance(res, errors.DecompressionError) and not isolate:

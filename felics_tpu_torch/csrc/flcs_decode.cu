@@ -1,4 +1,5 @@
-// FLCS single-stream decoder (kernel K4), one CUDA thread per image lane.
+// FLCS single-stream decoder (kernel K4): one block per image lane; its
+// threads zero the k-table, then one thread walks the lane's pixels.
 //
 // Replaces the XLA lax.scan of felics_tpu/core/jax_codec.py::
 // decode_channel_scan (:303-440), as _decode_images_scan (:492-510) runs it:
@@ -7,10 +8,10 @@
 // while_loop per step for the unary run) into one device loop.
 //
 // Per channel: the two raw 32-bit first pixels (bit-cast to int32), a
-// (max_context + 1, K) int32 k-table zeroed in the lane's global scratch,
-// then per pixel the marker bit and either the phase-in value over
-// n = ctx + 1 or the second marker bit, the unary run and k remainder bits,
-// with the table update, exactly as the reference's step.
+// (max_context + 1, K) k-table of zeros, then per pixel the marker bit and
+// either the phase-in value over n = ctx + 1 or the second marker bit, the
+// unary run and k remainder bits, with the table update, exactly as the
+// reference's step.
 //
 // Every value follows the reference's int32 arithmetic, including
 // wrap-around on corrupt streams: sums are formed in uint32 and cast, and
@@ -22,43 +23,46 @@
 // bit 32*W and raises the lane's overrun flag, counted only when the
 // out-of-range branch was taken.
 //
-// Layout: words (G, W) uint32 big-endian rows; table scratch (G, stride)
-// int32 with stride >= (max_context + 1) * K a multiple of 4 (16-byte
-// aligned rows, zeroed with vector stores); out (G, C, n) int32; end (G,)
-// int64 bit positions; overrun (G,) int32 flags.
+// What bounds it on an H100: nothing the card can spread. A lane is one
+// chain of C * H * W dependent steps (a step's context needs the value
+// decoded just before it, and its bits start where the last code ended),
+// and the batch gives only a few lanes. So the design cuts the latency of
+// one step, keeping every read on the chain out of device memory:
+// - Neighbours. The left neighbour is the value decoded one step before,
+//   held in a register. The row above is a ring of width + 1 int32 in
+//   shared memory, read one pixel ahead of its use; the first column's two
+//   rows above, and a single row's or column's two previous values, are
+//   registers. A row too wide for shared memory keeps its ring in a
+//   global scratch row of the same layout (the wrapper decides, the
+//   kernel is the same).
+// - The k-table. Rows are padded to RS = 8 or 16 int32 and read and
+//   written as int4 vectors; the k choice and the row minimum are
+//   compare trees. When the table fits in 48 KB (8-bit: 511 x 8 x 4 =
+//   16,352 bytes) it lives in shared memory; the 16-bit one (131,071 x 16 x
+//   4 = 8.4 MB) stays in global scratch, where it fits the 50 MB L2. The
+//   whole block zeroes it before each channel with int4 stores.
+// - Bits. A 64-bit register window holds the next 32 to 64 bits of the
+//   stream; it is refilled a word at a time from a word fetched one refill
+//   ahead, so no field read waits on a load whose address depends on the
+//   decoded data. The unary run counts ones with __clz on the window.
+// - The phase-in remainder (number + left) % n is a compare and subtract:
+//   number < n and left < n always hold, whatever the bits.
 //
-// What bounds it on an H100: one thread's chain of C * H * W dependent
-// pixel steps, each waiting on loads of its neighbours and table row from
-// global memory. With one lane per image the card is nearly idle; each
-// lane gets a block of its own so lanes never share a warp and diverge.
-// Register-held rows and shared-memory tables are later work.
+// Layout: words (G, W) uint32 big-endian rows; tables (G, table_stride)
+// int32 scratch, table_stride = (max_context + 1) * RS, used unless the
+// table is shared; rings (G, width + 1) int32 scratch, used unless the ring
+// is shared; out (G, C, n) int32; end (G,) int64 bit positions; overrun
+// (G,) int32 flags.
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
-#include "flct_common.cuh"
+#include "flcs_common.cuh"
 
 namespace {
 
-struct Words {
-  const uint32_t* row;
-  long long W;
-
-  // The reference's gather clamps an index past the buffer to its end.
-  __device__ __forceinline__ uint32_t word(long long i) const {
-    return __ldg(row + (i < W ? i : W - 1));
-  }
-
-  __device__ __forceinline__ uint32_t peek32(long long pos) const {
-    const long long wi = pos >> 5;
-    const int off = static_cast<int>(pos & 31);
-    return flct::shl32(word(wi), off) | flct::shr32(word(wi + 1), 32 - off);
-  }
-
-  __device__ __forceinline__ uint32_t bit(long long pos) const {
-    return peek32(pos) >> 31;
-  }
-};
+constexpr int kThreads = 256;            // per block: all zero, thread 0 walks
+constexpr int kDefaultSmem = 48 * 1024;  // dynamic shared memory without opt-in
 
 __device__ __forceinline__ int32_t add32(int32_t a, int32_t b) {
   return static_cast<int32_t>(static_cast<uint32_t>(a) + static_cast<uint32_t>(b));
@@ -68,118 +72,334 @@ __device__ __forceinline__ int32_t sub32(int32_t a, int32_t b) {
   return static_cast<int32_t>(static_cast<uint32_t>(a) - static_cast<uint32_t>(b));
 }
 
-__global__ void flcs_decode_kernel(const uint32_t* __restrict__ words,
-                                   long long W, int C, int height, int width,
-                                   int K, int max_context, int count_scaling,
-                                   int32_t* __restrict__ tables,
-                                   long long stride,
-                                   int32_t* __restrict__ out,
-                                   long long* __restrict__ end_bit,
-                                   int32_t* __restrict__ overrun) {
-  const int lane = blockIdx.x;
-  const long long n = static_cast<long long>(height) * width;
-  const Words wr{words + lane * W, W};
-  const long long limit = W * 32;
-  int32_t* table = tables + lane * stride;
-  long long pos = 0;
-  bool ov = false;
+// MSB-first reader of one lane's words through a 64-bit window: `buf`
+// holds the next `cnt` bits left-aligned, zeros below them.
+struct BitReader {
+  const uint32_t* row;
+  long long W;
+  uint64_t buf;
+  int cnt;
+  long long loaded;  // words moved into buf so far
+  uint32_t next;     // word `loaded` (clamped), fetched ahead of its use
 
-  for (int c = 0; c < C; ++c) {
-    int32_t* plane = out + (static_cast<long long>(lane) * C + c) * n;
-    int4* t4 = reinterpret_cast<int4*>(table);
-    for (long long i = 0; i < stride / 4; ++i) t4[i] = make_int4(0, 0, 0, 0);
-    plane[0] = static_cast<int32_t>(wr.peek32(pos));
-    plane[1] = static_cast<int32_t>(wr.peek32(pos + 32));
-    pos += 64;
+  // The reference's gather clamps an index past the buffer to its end.
+  __device__ __forceinline__ uint32_t word(long long i) const {
+    return __ldg(row + (i < W ? i : W - 1));
+  }
 
-    for (long long i = 2; i < n; ++i) {
-      int ia, ib;
-      flct::neighbours(static_cast<int>(i), width, &ia, &ib);
-      const int32_t va = plane[ia], vb = plane[ib];
-      const int32_t h = va > vb ? va : vb;
-      const int32_t l = va < vb ? va : vb;
-      const int32_t d = sub32(h, l);  // wraps negative on corrupt planes
-      const int ctx = d < 0 ? 0 : (d > max_context ? max_context : d);
-      int32_t* row = table + static_cast<long long>(ctx) * K;
-      int32_t value;
+  __device__ __forceinline__ void init(const uint32_t* r, long long w) {
+    row = r;
+    W = w;
+    buf = 0;
+    cnt = 0;
+    loaded = 0;
+    next = word(0);
+  }
 
-      if (wr.bit(pos) != 0u) {  // in range: phase-in over nn = ctx + 1
-        const int nn = ctx + 1;
-        const int m = 31 - __clz(nn);
-        const int left_p = nn - (1 << m);
-        const int right_p = (1 << (m + 1)) - nn;
-        const int first_m =
-            m > 0 ? static_cast<int>(wr.peek32(pos + 1) >> (32 - m)) : 0;
-        int number, len;
-        if (first_m < right_p) {
-          number = first_m;
-          len = m;
-        } else {
-          number = (first_m - right_p) * 2 + right_p +
-                   static_cast<int>(wr.bit(pos + 1 + m));
-          len = m + 1;
-        }
-        value = add32((number + left_p) % nn, l);
-        pos += 1 + len;
-      } else {  // out of range: sign bit, unary run, k remainder bits
-        int k = 0;
-        int32_t lo = row[0];
-        for (int j = 1; j < K; ++j) {
-          if (row[j] <= lo) {  // ties go to the largest k
-            lo = row[j];
-            k = j;
-          }
-        }
-        const bool above = wr.bit(pos + 1) != 0u;
-        uint32_t q = 0;
-        long long p = pos + 2;
-        while (true) {
-          const uint32_t inv = ~wr.peek32(p);
-          const int lead = inv != 0u ? __clz(static_cast<int>(inv)) : 32;
-          const bool finished = lead < 32 || p >= limit;
-          if (lead == 32 && finished) ov = true;
-          q += lead;
-          p += lead + (finished && lead < 32 ? 1 : 0);
-          if (finished) break;
-        }
-        const uint32_t rem = k > 0 ? wr.peek32(p) >> (32 - k) : 0u;
-        const int32_t encoded = static_cast<int32_t>((q << k) + rem);
-        value = above ? add32(add32(encoded, h), 1) : sub32(sub32(l, encoded), 1);
-        pos = p + k;
-        int32_t mn = INT32_MAX;
-        for (int j = 0; j < K; ++j) {
-          const int32_t add = static_cast<int32_t>(
-              static_cast<uint32_t>(encoded >> j) + 1u + static_cast<uint32_t>(j));
-          row[j] = add32(row[j], add);
-          mn = row[j] < mn ? row[j] : mn;
-        }
-        if (count_scaling >= 0 && mn > count_scaling) {
-          for (int j = 0; j < K; ++j) row[j] >>= 1;
-        }
-      }
-      plane[i] = value;
+  // At least 32 bits in the window afterwards.
+  __device__ __forceinline__ void need32() {
+    if (cnt < 32) {
+      buf |= static_cast<uint64_t>(next) << (32 - cnt);
+      cnt += 32;
+      ++loaded;
+      next = word(loaded);
     }
   }
-  end_bit[lane] = pos;
-  overrun[lane] = ov ? 1 : 0;
+
+  __device__ __forceinline__ uint32_t peek32() const {
+    return static_cast<uint32_t>(buf >> 32);
+  }
+
+  // The next n bits, 0 < n <= 32 and n <= cnt.
+  __device__ __forceinline__ uint32_t peek(int n) const {
+    return static_cast<uint32_t>(buf >> (64 - n));
+  }
+
+  // n <= cnt and n <= 32.
+  __device__ __forceinline__ void skip(int n) {
+    buf <<= n;
+    cnt -= n;
+  }
+
+  __device__ __forceinline__ long long pos() const { return loaded * 32 - cnt; }
+};
+
+struct Params {
+  const uint32_t* words;
+  long long W;
+  int C, height, width, K, max_context, count_scaling;
+  int32_t* tables;
+  long long table_stride;
+  int32_t* rings;
+  int32_t* out;
+  long long* end_bit;
+  int32_t* overrun;
+};
+
+template <int RS>
+struct Lane {
+  BitReader br;
+  int32_t* table;
+  int K, max_context, count_scaling;
+  long long limit;
+  bool ov;
+
+  // One pixel from its two neighbours' values.
+  __device__ __forceinline__ int32_t step(int32_t va, int32_t vb) {
+    const int32_t h = va > vb ? va : vb;
+    const int32_t l = va < vb ? va : vb;
+    const int32_t d = sub32(h, l);  // wraps negative on corrupt planes
+    const int ctx = d < 0 ? 0 : (d > max_context ? max_context : d);
+    br.need32();
+    const uint32_t head = br.peek32();
+
+    if (head >> 31) {  // in range: phase-in over nn = ctx + 1
+      const int nn = ctx + 1;
+      const int m = 31 - __clz(nn);
+      const int left_p = nn - (1 << m);
+      const int right_p = (2 << m) - nn;
+      // The marker, m bits and one more: m + 2 <= 19 bits.
+      const uint32_t bits = br.peek(m + 2);
+      const int first_m = static_cast<int>((bits >> 1) & ((1u << m) - 1u));
+      int number, len;
+      if (first_m < right_p) {
+        number = first_m;
+        len = m;
+      } else {
+        number = (first_m - right_p) * 2 + right_p + static_cast<int>(bits & 1u);
+        len = m + 1;
+      }
+      br.skip(1 + len);
+      const int r = number + left_p;
+      return add32(r >= nn ? r - nn : r, l);
+    }
+
+    // Out of range: sign bit, unary run, k remainder bits.
+    int32_t* trow = table + static_cast<long long>(ctx) * RS;
+    int32_t row[RS];
+#pragma unroll
+    for (int v = 0; v < RS / 4; ++v) {
+      const int4 t = reinterpret_cast<const int4*>(trow)[v];
+      row[4 * v] = t.x;
+      row[4 * v + 1] = t.y;
+      row[4 * v + 2] = t.z;
+      row[4 * v + 3] = t.w;
+    }
+    const int k = flcs::argmin_last(row, K);
+    const bool above = (head >> 30) & 1u;
+    br.skip(2);
+    uint32_t q = 0;
+    while (true) {
+      br.need32();
+      const uint32_t inv = ~br.peek32();
+      if (inv != 0u) {
+        const int lead = __clz(static_cast<int>(inv));
+        q += lead;
+        br.skip(lead + 1);
+        break;
+      }
+      // 32 ones: the run goes on, unless it has reached the end of words.
+      q += 32;
+      const bool at_end = br.pos() >= limit;
+      br.skip(32);
+      if (at_end) {
+        ov = true;
+        break;
+      }
+    }
+    br.need32();
+    const uint32_t rem = k > 0 ? br.peek(k) : 0u;
+    br.skip(k);
+    const int32_t encoded = static_cast<int32_t>((q << k) + rem);
+#pragma unroll
+    for (int j = 0; j < RS; ++j) {
+      if (j < K) {
+        row[j] = add32(row[j], static_cast<int32_t>(static_cast<uint32_t>(encoded >> j) +
+                                                    1u + static_cast<uint32_t>(j)));
+      }
+    }
+    if (count_scaling >= 0 && flcs::min_of(row, K) > count_scaling) {
+#pragma unroll
+      for (int j = 0; j < RS; ++j) {
+        if (j < K) row[j] >>= 1;
+      }
+    }
+#pragma unroll
+    for (int v = 0; v < RS / 4; ++v) {
+      reinterpret_cast<int4*>(trow)[v] =
+          make_int4(row[4 * v], row[4 * v + 1], row[4 * v + 2], row[4 * v + 3]);
+    }
+    return above ? add32(add32(encoded, h), 1) : sub32(sub32(l, encoded), 1);
+  }
+};
+
+// One channel plane of n = height * width >= 2 pixels; `ring` holds
+// width + 1 int32. Inlined, so the lane's state stays in registers.
+template <int RS>
+__device__ __forceinline__ void decode_plane(Lane<RS>& s, int32_t* plane, int height, int width,
+                             int32_t* ring) {
+  const long long n = static_cast<long long>(height) * width;
+  s.br.need32();
+  const int32_t v0 = static_cast<int32_t>(s.br.peek32());
+  s.br.skip(32);
+  s.br.need32();
+  const int32_t v1 = static_cast<int32_t>(s.br.peek32());
+  s.br.skip(32);
+  plane[0] = v0;
+  plane[1] = v1;
+
+  if (width == 1 || height == 1) {  // one row or column: neighbours i-1, i-2
+    int32_t p2 = v0, p1 = v1;
+    for (long long i = 2; i < n; ++i) {
+      const int32_t v = s.step(p1, p2);
+      plane[i] = v;
+      p2 = p1;
+      p1 = v;
+    }
+    return;
+  }
+
+  // Row 0: (left, left-left).
+  ring[0] = v0;
+  ring[1] = v1;
+  int32_t p2 = v0, p1 = v1;
+  for (int x = 2; x < width; ++x) {
+    const int32_t v = s.step(p1, p2);
+    ring[x] = v;
+    plane[x] = v;
+    p2 = p1;
+    p1 = v;
+  }
+  // Rows 1..: x = 0 takes (above, above-right) on row 1 and (above,
+  // above-above) below it; x > 0 takes (left, above).
+  int32_t up2 = 0;  // the first column two rows up
+  for (int y = 1; y < height; ++y) {
+    int32_t* prow = plane + static_cast<long long>(y) * width;
+    const int32_t up = ring[0];
+    int32_t above = ring[1];
+    int32_t v = s.step(up, y == 1 ? above : up2);
+    up2 = up;
+    ring[0] = v;
+    prow[0] = v;
+    for (int x = 1; x < width; ++x) {
+      const int32_t above_next = ring[x + 1];  // ring[width] is padding
+      v = s.step(v, above);
+      ring[x] = v;
+      prow[x] = v;
+      above = above_next;
+    }
+  }
+}
+
+template <int RS, bool kTableShared, bool kRingShared>
+__global__ void __launch_bounds__(kThreads) flcs_decode_kernel(const Params p) {
+  extern __shared__ int4 smem4[];
+  int32_t* smem = reinterpret_cast<int32_t*>(smem4);
+  const int lane = blockIdx.x;
+  const long long n = static_cast<long long>(p.height) * p.width;
+  const long long table_ints = (p.max_context + 1LL) * RS;
+  int32_t* table = kTableShared ? smem : p.tables + lane * p.table_stride;
+  int32_t* ring = kRingShared ? smem + (kTableShared ? table_ints : 0)
+                              : p.rings + lane * (p.width + 1LL);
+
+  Lane<RS> s;
+  if (threadIdx.x == 0) {
+    s.br.init(p.words + lane * p.W, p.W);
+    s.table = table;
+    s.K = p.K;
+    s.max_context = p.max_context;
+    s.count_scaling = p.count_scaling;
+    s.limit = p.W * 32;
+    s.ov = false;
+  }
+  for (int c = 0; c < p.C; ++c) {
+    int4* t4 = reinterpret_cast<int4*>(table);
+    for (long long i = threadIdx.x; i < table_ints / 4; i += kThreads) {
+      t4[i] = make_int4(0, 0, 0, 0);
+    }
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      decode_plane(s, p.out + (static_cast<long long>(lane) * p.C + c) * n, p.height,
+                   p.width, ring);
+    }
+    __syncthreads();
+  }
+  if (threadIdx.x == 0) {
+    p.end_bit[lane] = s.br.pos();
+    p.overrun[lane] = s.ov ? 1 : 0;
+  }
+}
+
+template <int RS, bool kTableShared, bool kRingShared>
+cudaError_t launch(const Params& p, int G, size_t smem, cudaStream_t stream) {
+  auto kernel = flcs_decode_kernel<RS, kTableShared, kRingShared>;
+  if (smem > static_cast<size_t>(kDefaultSmem)) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (e != cudaSuccess) return e;
+  }
+  kernel<<<G, kThreads, smem, stream>>>(p);
+  return cudaGetLastError();
+}
+
+template <int RS>
+cudaError_t dispatch(const Params& p, int G, bool table_shared, bool ring_shared,
+                     size_t smem, cudaStream_t stream) {
+  if (table_shared) {
+    return ring_shared ? launch<RS, true, true>(p, G, smem, stream)
+                       : launch<RS, true, false>(p, G, smem, stream);
+  }
+  return ring_shared ? launch<RS, false, true>(p, G, smem, stream)
+                     : launch<RS, false, false>(p, G, smem, stream);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Launches K4 on `stream`, one block of one thread per lane; returns
-// cudaGetLastError() (0 = ok).
-int flcs_decode(const void* words, long long W, int G, int C, int height,
-                int width, int K, int max_context, int count_scaling,
-                void* tables, long long stride, void* out, void* end_bit,
+// Dynamic shared memory one block may opt in to on the current device
+// (bytes), or -1 on error.
+int flcs_decode_smem_limit(void) {
+  int dev = 0, bytes = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess) return -1;
+  if (cudaDeviceGetAttribute(&bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev) !=
+      cudaSuccess) {
+    return -1;
+  }
+  return bytes;
+}
+
+// Launches K4 on `stream`, one block of 256 threads per lane; returns
+// cudaGetLastError() (0 = ok). `rs` is the table's row stride, 8 or 16;
+// `tables` is read only when `table_shared` is 0, `rings` only when
+// `ring_shared` is 0.
+int flcs_decode(const void* words, long long W, int G, int C, int height, int width,
+                int K, int max_context, int count_scaling, int rs, int table_shared,
+                void* tables, int ring_shared, void* rings, void* out, void* end_bit,
                 void* overrun, void* stream) {
-  flcs_decode_kernel<<<G, 1, 0, reinterpret_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(words), W, C, height, width, K,
-      max_context, count_scaling, static_cast<int32_t*>(tables), stride,
-      static_cast<int32_t*>(out), static_cast<long long*>(end_bit),
-      static_cast<int32_t*>(overrun));
-  return static_cast<int>(cudaGetLastError());
+  if ((rs != 8 && rs != 16) || K < 1 || K > rs) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const Params p{static_cast<const uint32_t*>(words),
+                 W,
+                 C,
+                 height,
+                 width,
+                 K,
+                 max_context,
+                 count_scaling,
+                 static_cast<int32_t*>(tables),
+                 (max_context + 1LL) * rs,
+                 static_cast<int32_t*>(rings),
+                 static_cast<int32_t*>(out),
+                 static_cast<long long*>(end_bit),
+                 static_cast<int32_t*>(overrun)};
+  const size_t smem = (table_shared ? (max_context + 1ULL) * rs * 4 : 0) +
+                      (ring_shared ? (width + 1ULL) * 4 : 0);
+  const cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  const cudaError_t e = rs == 8 ? dispatch<8>(p, G, table_shared, ring_shared, smem, s)
+                                : dispatch<16>(p, G, table_shared, ring_shared, smem, s);
+  return static_cast<int>(e);
 }
 
 }  // extern "C"

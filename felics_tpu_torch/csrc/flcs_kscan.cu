@@ -1,5 +1,5 @@
-// FLCS adaptive-k scan (kernel K3), one CUDA thread per (lane, context
-// segment).
+// FLCS adaptive-k scan (kernel K3), one CUDA thread per sorted slot; the
+// thread at the first slot of a context segment walks the segment.
 //
 // Replaces the XLA lax.scan step of felics_tpu/ops/kscan.py::kscan (the
 // rank loop at :108-126, which advances every context's k-table by one
@@ -8,72 +8,99 @@
 // Python loop of several launches per rank.
 //
 // Input: each lane's out-of-range pixels stable-sorted by context (raster
-// order kept within a context), cut into segments of one context each. A
-// thread walks its segment in order with the K-entry table (K <= 15) in
-// registers: for each update it writes the k chosen BEFORE the update (the
-// last index of the row's minimum) to k[lane, pixel], adds the Rice length
-// row (v >> k) + 1 + k, and halves the row when its minimum exceeds
-// count_scaling (strictly; -1 = never). Pixels that are not out of range
-// keep the value the wrapper filled in (the largest k).
+// order kept within a context), their residuals gathered into that order,
+// and each slot's rank within its context. A slot of rank 0 below the
+// lane's out-of-range count starts a segment; its thread walks the slots
+// after it until the next rank 0 or the count, with the K-entry table
+// (K <= 15) in registers: for each update it writes the k chosen BEFORE the
+// update (the last index of the row's minimum) to k[lane, slot], adds the
+// Rice length row (v >> k) + 1 + k, and halves the row when its minimum
+// exceeds count_scaling (strictly; -1 = never). Every other thread returns
+// at once, and slots that are not out of range keep the value the wrapper
+// filled in (the largest k).
 //
-// Layout: residual (G, n) int32, raster order; order (G, n) int64, sorted
-// slot -> raster pixel; seg (3, S) int32 rows lane, begin, end (sorted
-// slots); k (G, n) int32.
+// Layout: residual (G, n) int32 and rank (G, n) int64, both in sorted
+// order; num_oor (G,) int64; k (G, n) int32 in sorted order, scattered
+// back to raster order by the wrapper.
 //
 // Table values stay far below 2^31 on any image (each update adds at most
 // 2^17 + 15 and the halving holds the minimum near count_scaling), so plain
 // int32 arithmetic is exact, as in the reference's int32 table.
 //
-// What bounds it on an H100: the longest segment's serial chain (argmin,
-// add, min, halve over K registers per update), plus one dependent pair of
-// loads (order, then residual) per update. Segments of a lane differ widely
-// in length, so most threads finish early. Load prefetching and splitting
-// the longest segments are later work.
+// What bounds it on an H100: the longest segment's serial chain of table
+// updates. Its loads are not on that chain: a segment's residuals and
+// ranks are contiguous and independent of the table, so the thread loads
+// them kPrefetch slots ahead, in registers, while it updates the table.
+// The k choice and the row minimum are compare trees (flcs_common.cuh).
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
+#include "flcs_common.cuh"
+
 namespace {
 
-constexpr int kMaxK = 15;
+constexpr int kThreads = 256;
+constexpr int kPrefetch = 8;
 
-__global__ void flcs_kscan_kernel(const int32_t* __restrict__ residual,
-                                  const long long* __restrict__ order,
-                                  const int32_t* __restrict__ seg,
-                                  int32_t* __restrict__ k_out, int S,
-                                  long long n, int K, int count_scaling) {
-  const int s = blockIdx.x * blockDim.x + threadIdx.x;
-  if (s >= S) return;
-  const long long base = static_cast<long long>(seg[s]) * n;
-  const int begin = seg[S + s], end = seg[2 * S + s];
-  int32_t table[kMaxK];
-#pragma unroll
-  for (int k = 0; k < kMaxK; ++k) table[k] = 0;
+template <int KMAX>
+__global__ void __launch_bounds__(kThreads)
+    flcs_kscan_kernel(const int32_t* __restrict__ residual,
+                      const long long* __restrict__ rank,
+                      const long long* __restrict__ num_oor,
+                      int32_t* __restrict__ k_out, long long total, long long n,
+                      int K, int count_scaling) {
+  const long long s = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (s >= total) return;
+  const long long lane = s / n;
+  const long long begin = s - lane * n;
+  const long long end = num_oor[lane];
+  if (begin >= end || rank[s] != 0) return;
+  const long long base = lane * n;
 
-  for (int pos = begin; pos < end; ++pos) {
-    const long long pix = base + order[base + pos];
-    const int32_t v = residual[pix];
-    int best = 0;
-    int32_t lo = table[0];
+  int32_t table[KMAX];
 #pragma unroll
-    for (int k = 1; k < kMaxK; ++k) {
-      if (k < K && table[k] <= lo) {  // ties go to the largest k
-        lo = table[k];
-        best = k;
+  for (int k = 0; k < KMAX; ++k) table[k] = 0;
+
+  int32_t v[kPrefetch];
+  long long rk[kPrefetch];
+#pragma unroll
+  for (int j = 0; j < kPrefetch; ++j) {
+    const long long i = begin + j;
+    v[j] = i < end ? residual[base + i] : 0;
+    rk[j] = i < end ? rank[base + i] : 0;
+  }
+  for (long long pos = begin;; pos += kPrefetch) {
+    int32_t vn[kPrefetch];
+    long long rn[kPrefetch];
+#pragma unroll
+    for (int j = 0; j < kPrefetch; ++j) {
+      const long long i = pos + kPrefetch + j;
+      vn[j] = i < end ? residual[base + i] : 0;
+      rn[j] = i < end ? rank[base + i] : 0;
+    }
+    bool done = false;
+#pragma unroll
+    for (int j = 0; j < kPrefetch; ++j) {
+      const long long i = pos + j;
+      done = done || i >= end || (i != begin && rk[j] == 0);
+      if (!done) {
+        k_out[base + i] = flcs::argmin_last(table, K);
+#pragma unroll
+        for (int k = 0; k < KMAX; ++k) {
+          if (k < K) table[k] += (v[j] >> k) + 1 + k;
+        }
+        if (count_scaling >= 0 && flcs::min_of(table, K) > count_scaling) {
+#pragma unroll
+          for (int k = 0; k < KMAX; ++k) table[k] >>= 1;
+        }
       }
     }
-    k_out[pix] = best;
-    int32_t mn = INT32_MAX;
+    if (done) return;
 #pragma unroll
-    for (int k = 0; k < kMaxK; ++k) {
-      if (k < K) {
-        table[k] += (v >> k) + 1 + k;
-        mn = table[k] < mn ? table[k] : mn;
-      }
-    }
-    if (count_scaling >= 0 && mn > count_scaling) {
-#pragma unroll
-      for (int k = 0; k < kMaxK; ++k) table[k] >>= 1;
+    for (int j = 0; j < kPrefetch; ++j) {
+      v[j] = vn[j];
+      rk[j] = rn[j];
     }
   }
 }
@@ -82,17 +109,25 @@ __global__ void flcs_kscan_kernel(const int32_t* __restrict__ residual,
 
 extern "C" {
 
-// Launches K3 on `stream`; returns cudaGetLastError() (0 = ok).
-int flcs_kscan(const void* residual, const void* order, const void* seg,
-               void* k_out, int S, long long n, int K, int count_scaling,
-               void* stream) {
-  constexpr int kThreads = 64;
-  const int blocks = (S + kThreads - 1) / kThreads;
-  flcs_kscan_kernel<<<blocks, kThreads, 0,
-                      reinterpret_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(residual),
-      static_cast<const long long*>(order), static_cast<const int32_t*>(seg),
-      static_cast<int32_t*>(k_out), S, n, K, count_scaling);
+// Launches K3 on `stream` over G * n > 0 slots; returns cudaGetLastError()
+// (0 = ok).
+int flcs_kscan(const void* residual, const void* rank, const void* num_oor, void* k_out,
+               int G, long long n, int K, int count_scaling, void* stream) {
+  if (K < 1 || K > 16) return static_cast<int>(cudaErrorInvalidValue);
+  const long long total = static_cast<long long>(G) * n;
+  const unsigned blocks = static_cast<unsigned>((total + kThreads - 1) / kThreads);
+  const cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  const auto* res = static_cast<const int32_t*>(residual);
+  const auto* rk = static_cast<const long long*>(rank);
+  const auto* oor = static_cast<const long long*>(num_oor);
+  auto* k = static_cast<int32_t*>(k_out);
+  if (K <= 8) {
+    flcs_kscan_kernel<8><<<blocks, kThreads, 0, s>>>(res, rk, oor, k, total, n, K,
+                                                     count_scaling);
+  } else {
+    flcs_kscan_kernel<16><<<blocks, kThreads, 0, s>>>(res, rk, oor, k, total, n, K,
+                                                      count_scaling);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -9,7 +9,7 @@ from typing import List
 import numpy as np
 import torch
 
-from felics_tpu.core.context import neighbour_indices
+from felics_tpu_torch.core.context import neighbour_indices
 
 _NP_DTYPES = {
     torch.bool: np.bool_, torch.uint8: np.uint8, torch.int32: np.int32,
@@ -60,5 +60,5 @@ def neighbours(height: int, width: int, device) -> tuple:
     tensors on ``device`` (first two pixels point at themselves)."""
     return tuple(
         torch.from_numpy(i.astype(np.int64)).to(device)
-        for i in neighbour_indices(height, width, xp=np)
+        for i in neighbour_indices(height, width)
     )

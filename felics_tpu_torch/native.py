@@ -1,0 +1,137 @@
+"""ctypes binding of the repository's native C++ codec, the port's comparator.
+
+Counterpart: the ``compress``, ``decompress`` and ``compress_tiled`` calls of
+felics_tpu/native/runtime.py. The library is ``native/build/libfelics_core.so``,
+built by ``python native/build.py`` from native/src/felics_core.cpp; the port
+itself never calls it, ``chip_smoke.py`` holds the port's containers and
+images against it.
+
+C ABI (0 = ok; a negative code names the error class):
+    int fel_compress(const int32_t* pixels, uint32_t width, uint32_t height,
+                     int color_type, int pixel_depth, uint8_t** out, size_t* out_len);
+    int fel_compress_tiled(const int32_t* pixels, uint32_t width, uint32_t height,
+                           int color_type, int pixel_depth, uint16_t tile_w,
+                           uint16_t tile_h, int n_threads, uint8_t** out, size_t* out_len);
+    int fel_decompress(const uint8_t* data, size_t len, int32_t** out_pixels,
+                       uint32_t* width, uint32_t* height, int* color_type,
+                       int* pixel_depth);
+    void fel_free(void* ptr);
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+from pathlib import Path
+from typing import Optional
+
+import numpy as np
+
+from felics_tpu_torch import errors
+from felics_tpu_torch.format import ColorType, Header, PixelDepth
+
+LIB_PATH = Path(__file__).resolve().parent.parent / "native" / "build" / "libfelics_core.so"
+
+_ERRORS = {
+    -1: errors.IoError,
+    -2: errors.InvalidValue,
+    -3: errors.ValueOverflow,
+    -4: errors.InvalidDimensions,
+    -5: errors.InvalidColorType,
+    -6: errors.InvalidPixelDepth,
+    -7: errors.InvalidSignature,
+    -8: MemoryError,
+}
+
+_lib: Optional[ctypes.CDLL] = None
+
+
+def _load() -> ctypes.CDLL:
+    global _lib
+    if _lib is None:
+        if not LIB_PATH.exists():
+            raise RuntimeError(f"{LIB_PATH} not built; run python native/build.py")
+        lib = ctypes.CDLL(str(LIB_PATH))
+        u8p, i32p = ctypes.POINTER(ctypes.c_uint8), ctypes.POINTER(ctypes.c_int32)
+        u32, i32, size = ctypes.c_uint32, ctypes.c_int, ctypes.c_size_t
+        lib.fel_compress.restype = i32
+        lib.fel_compress.argtypes = [
+            i32p, u32, u32, i32, i32, ctypes.POINTER(u8p), ctypes.POINTER(size),
+        ]
+        lib.fel_compress_tiled.restype = i32
+        lib.fel_compress_tiled.argtypes = [
+            i32p, u32, u32, i32, i32, ctypes.c_uint16, ctypes.c_uint16, i32,
+            ctypes.POINTER(u8p), ctypes.POINTER(size),
+        ]
+        lib.fel_decompress.restype = i32
+        lib.fel_decompress.argtypes = [
+            u8p, size, ctypes.POINTER(i32p), ctypes.POINTER(u32),
+            ctypes.POINTER(u32), ctypes.POINTER(i32), ctypes.POINTER(i32),
+        ]
+        lib.fel_free.restype = None
+        lib.fel_free.argtypes = [ctypes.c_void_p]
+        _lib = lib
+    return _lib
+
+
+def _check(code: int) -> None:
+    if code != 0:
+        raise _ERRORS.get(code, errors.DecompressionError)(f"native codec error {code}")
+
+
+def _take_bytes(lib: ctypes.CDLL, out_ptr, out_len) -> bytes:
+    try:
+        return ctypes.string_at(out_ptr, out_len.value)
+    finally:
+        lib.fel_free(out_ptr)
+
+
+def compress(image: np.ndarray, header: Header) -> bytes:
+    """FLCS container of ``image``."""
+    lib = _load()
+    flat = np.ascontiguousarray(image.reshape(-1), dtype=np.int32)
+    out_ptr, out_len = ctypes.POINTER(ctypes.c_uint8)(), ctypes.c_size_t()
+    _check(lib.fel_compress(
+        flat.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)), header.width,
+        header.height, int(header.color_type), int(header.pixel_depth),
+        ctypes.byref(out_ptr), ctypes.byref(out_len),
+    ))
+    return _take_bytes(lib, out_ptr, out_len)
+
+
+def compress_tiled(
+    image: np.ndarray, header: Header, tile_w: int, tile_h: int, n_threads: int = 0
+) -> bytes:
+    """FLCT container of ``image``; ``n_threads`` 0 takes every host core."""
+    lib = _load()
+    flat = np.ascontiguousarray(image.reshape(-1), dtype=np.int32)
+    out_ptr, out_len = ctypes.POINTER(ctypes.c_uint8)(), ctypes.c_size_t()
+    _check(lib.fel_compress_tiled(
+        flat.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)), header.width,
+        header.height, int(header.color_type), int(header.pixel_depth),
+        tile_w, tile_h, n_threads or os.cpu_count() or 1,
+        ctypes.byref(out_ptr), ctypes.byref(out_len),
+    ))
+    return _take_bytes(lib, out_ptr, out_len)
+
+
+def decompress(data: bytes) -> np.ndarray:
+    """(H, W[, 3]) uint8/uint16 image of an FLCS container."""
+    lib = _load()
+    buf = (ctypes.c_uint8 * len(data)).from_buffer_copy(data)
+    out_ptr = ctypes.POINTER(ctypes.c_int32)()
+    width, height = ctypes.c_uint32(), ctypes.c_uint32()
+    color, depth = ctypes.c_int(), ctypes.c_int()
+    _check(lib.fel_decompress(
+        buf, len(data), ctypes.byref(out_ptr), ctypes.byref(width),
+        ctypes.byref(height), ctypes.byref(color), ctypes.byref(depth),
+    ))
+    try:
+        nchan = 1 if color.value == int(ColorType.GRAY) else 3
+        n = width.value * height.value * nchan
+        arr = np.ctypeslib.as_array(out_ptr, shape=(n,)).copy() if n else np.zeros(0, np.int32)
+    finally:
+        lib.fel_free(out_ptr)
+    dtype = np.uint8 if depth.value == int(PixelDepth.EIGHT) else np.uint16
+    shape = (height.value, width.value) + ((3,) if nchan == 3 else ())
+    return arr.astype(dtype).reshape(shape)

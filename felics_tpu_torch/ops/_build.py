@@ -1,6 +1,7 @@
 """Build the CUDA sources in ``felics_tpu_torch/csrc`` at first use.
 
-nvcc compiles ``csrc/*.cu`` for ``sm_90a`` into one shared library with a
+nvcc compiles each ``csrc/*.cu`` for ``sm_90a`` in a process of its own, all
+started together, and links the objects into one shared library with a
 plain C interface, which ``ctypes`` loads. The library lands in
 ``felics_tpu_torch/_build/`` under a name keyed by a hash of the sources and
 flags, so an edited source rebuilds and an unchanged one loads at once.
@@ -24,10 +25,10 @@ PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 SOURCES = ("flct_encode.cu", "flct_decode.cu", "flcs_kscan.cu", "flcs_decode.cu")
-HEADERS = ("flct_common.cuh",)
+HEADERS = ("flct_common.cuh", "flcs_common.cuh")
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    *ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-Xptxas=-v",  # per-kernel registers, local memory and spills
 )
 
@@ -76,22 +77,35 @@ def build() -> Path:
         BuildInfo.path, BuildInfo.seconds = out, 0.0
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp,
-           *(str(CSRC_DIR / s) for s in SOURCES)]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-            f"{proc.stdout}{proc.stderr}"
-        )
-    os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
+    nvcc = nvcc_path()
+    work = tempfile.mkdtemp(dir=BUILD_DIR)
+    try:
+        t0 = time.perf_counter()
+        jobs = []
+        for src in SOURCES:
+            obj = os.path.join(work, src + ".o")
+            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(CSRC_DIR / src)]
+            jobs.append((cmd, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+        # Wait for every compile before judging any, so none outlives us.
+        logs = [(cmd, proc.communicate()[0], proc.returncode) for cmd, _, proc in jobs]
+        for cmd, log, code in logs:
+            if code != 0:
+                raise RuntimeError(f"nvcc failed ({code}): {' '.join(cmd)}\n{log}")
+        lib = os.path.join(work, "lib.so")
+        link = [nvcc, *ARCH, "-shared", "-o", lib, *(obj for _, obj, _ in jobs)]
+        proc = subprocess.run(link, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc link failed ({proc.returncode}): {' '.join(link)}\n"
+                f"{proc.stdout}{proc.stderr}"
+            )
+        seconds = time.perf_counter() - t0
+        os.replace(lib, out)  # atomic: a concurrent loader never sees half a file
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
     BuildInfo.path, BuildInfo.seconds = out, seconds
-    BuildInfo.log = proc.stdout + proc.stderr
+    BuildInfo.log = "".join(log for _, log, _ in logs)
     return out
 
 
@@ -113,8 +127,11 @@ def library() -> ctypes.CDLL:
         lib.flcs_kscan.argtypes = [vp, vp, vp, vp, i32, i64, i32, i32, vp]
         lib.flcs_decode.restype = i32
         lib.flcs_decode.argtypes = [
-            vp, i64, i32, i32, i32, i32, i32, i32, i32, vp, i64, vp, vp, vp, vp,
+            vp, i64, i32, i32, i32, i32, i32, i32, i32, i32, i32, vp, i32, vp,
+            vp, vp, vp, vp,
         ]
+        lib.flcs_decode_smem_limit.restype = i32
+        lib.flcs_decode_smem_limit.argtypes = []
         lib.flct_error_string.restype = ctypes.c_char_p
         lib.flct_error_string.argtypes = [i32]
         _lib = lib

@@ -8,9 +8,10 @@ stable-sorted by context (raster order is kept within a context), and:
 
 * ``kscan_ref`` (plain version, the CPU path) walks ranks: step r advances
   every (lane, context) table by its r-th update at once;
-* ``kscan`` launches ``csrc/flcs_kscan.cu`` on CUDA tensors: one thread per
-  (lane, context segment) walks its segment in order with the table in
-  registers.
+* ``kscan`` launches ``csrc/flcs_kscan.cu`` on CUDA tensors over the
+  residuals gathered into sorted order: the thread of each segment's first
+  slot walks the segment in order with the table in registers, and k is
+  scattered back to raster order.
 
 Both emit the k chosen BEFORE each update (the last index of the row's
 minimum), add the Rice length row ``(v >> k) + 1 + k`` and halve the row
@@ -26,7 +27,7 @@ from typing import NamedTuple
 
 import torch
 
-from felics_tpu.config import CodingConfig
+from felics_tpu_torch.config import CodingConfig
 from felics_tpu_torch.ops import _build
 from felics_tpu_torch.ops.bits import k_select
 
@@ -130,28 +131,25 @@ def kscan(
     if residual.device.type != "cuda":
         raise ValueError(f"unsupported device {residual.device}")
     dev = residual.device
-    k = torch.full((G, n), K - 1, dtype=torch.int32, device=dev)
-    valid = torch.arange(n, device=dev) < su.num_oor.unsqueeze(1)
-    starts = ((su.rank == 0) & valid).nonzero()  # (S, 2): lane, begin
-    S = starts.shape[0]
-    if S == 0:
-        return k
-    lane, begin = starts[:, 0], starts[:, 1]
-    same_lane = torch.cat([lane[1:] == lane[:-1], lane.new_zeros(1, dtype=torch.bool)])
-    end = torch.where(same_lane, torch.roll(begin, -1), su.num_oor[lane])
-    seg = torch.stack([lane, begin, end]).to(torch.int32).contiguous()
-    res32 = residual.to(torch.int32).contiguous()
-    order = su.order.contiguous()
+    # The kernel reads each segment as a contiguous run and writes k in
+    # sorted order; slots that are not out of range keep the largest k.
+    k_sorted = torch.full((G, n), K - 1, dtype=torch.int32, device=dev)
+    if G * n == 0:
+        return k_sorted
+    res_sorted = residual.to(torch.int32).gather(1, su.order).contiguous()
+    rank = su.rank.to(torch.int64).contiguous()
+    num_oor = su.num_oor.to(torch.int64).contiguous()
     cs = -1 if cfg.count_scaling is None else int(cfg.count_scaling)
     lib = _build.library()
     with torch.cuda.device(dev):
         code = lib.flcs_kscan(
-            res32.data_ptr(), order.data_ptr(), seg.data_ptr(), k.data_ptr(),
-            S, n, K, cs, torch.cuda.current_stream().cuda_stream,
+            res_sorted.data_ptr(), rank.data_ptr(), num_oor.data_ptr(),
+            k_sorted.data_ptr(), G, n, K, cs,
+            torch.cuda.current_stream().cuda_stream,
         )
     _build.check(code, "flcs_kscan")
     LAUNCHES += 1
-    return k
+    return torch.empty_like(k_sorted).scatter_(1, su.order, k_sorted)
 
 
 def compute_k(

@@ -24,8 +24,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from felics_tpu.config import QCTX_CAP, CodingConfig
-from felics_tpu.core.context import neighbour_indices
+from felics_tpu_torch.config import QCTX_CAP, CodingConfig
+from felics_tpu_torch.core.context import neighbour_indices
 from felics_tpu_torch.ops import _build
 from felics_tpu_torch.ops.bits import (
     MASK32, bit_length, k_select, shl32, shr32, to_i32_bits, to_u32_value,
@@ -176,7 +176,7 @@ def encode_tiles_ref(
     dev = tiles.device
     _check_prior(prior, n, c, nb, K, dev)
     pr = _per_tile_prior(prior, n, c, nb, K)
-    a_idx, b_idx = neighbour_indices(th, tw, xp=np)
+    a_idx, b_idx = neighbour_indices(th, tw)
     ks = torch.arange(K, dtype=torch.int64, device=dev)
     lanes = torch.arange(n, device=dev)
     wr = _BitWriter(n, W, dev)
@@ -289,7 +289,7 @@ def decode_tiles_ref(
     _check_prior(prior, n, c, nb, K, dev)
     pr = _per_tile_prior(prior, n, c, nb, K)
     t = th * tw
-    a_idx, b_idx = neighbour_indices(th, tw, xp=np)
+    a_idx, b_idx = neighbour_indices(th, tw)
     ks = torch.arange(K, dtype=torch.int64, device=dev)
     lanes = torch.arange(n, device=dev)
     zero2 = torch.zeros((n, 2), dtype=torch.int64, device=dev)

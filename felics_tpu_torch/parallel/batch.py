@@ -17,9 +17,9 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from felics_tpu.api import header_for_array
-from felics_tpu.config import TileConfig
+from felics_tpu_torch.config import TileConfig
 from felics_tpu_torch.device import resolve_device
+from felics_tpu_torch.format import header_for_array
 from felics_tpu_torch.parallel import flct, tiling
 
 
@@ -52,7 +52,7 @@ def compress_tiled_batch(
 
 def decompress_tiled_batch(datas: Sequence[bytes], device="cuda") -> List:
     """Images of a list of FLCT containers. Any corrupt member raises (a
-    ``felics_tpu.errors.DecompressionError``), as the per-image call does."""
+    ``felics_tpu_torch.errors.DecompressionError``), as the per-image call does."""
     dev = resolve_device(device)
     headers = [flct.read_tiled_header(d) for d in datas]
     payloads = [tiling.payload_of(d, hd) for d, hd in zip(datas, headers)]

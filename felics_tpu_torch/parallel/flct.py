@@ -29,9 +29,9 @@ from typing import Optional, Tuple
 
 import numpy as np
 
-from felics_tpu import errors
-from felics_tpu.config import CodingConfig, TileConfig, tiled_config_for_depth
-from felics_tpu.format import ColorType, Header, PixelDepth
+from felics_tpu_torch import errors
+from felics_tpu_torch.config import CodingConfig, TileConfig, tiled_config_for_depth
+from felics_tpu_torch.format import ColorType, Header, PixelDepth
 from felics_tpu_torch.ops.tile_codec import num_buckets
 
 MAGIC_TILED = b"FLCT"

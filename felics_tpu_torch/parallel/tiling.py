@@ -22,14 +22,13 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
-from felics_tpu import errors
-from felics_tpu.api import header_for_array
-from felics_tpu.config import CodingConfig, TileConfig, tiled_config_for_depth
-from felics_tpu.core.color import rgb_to_ycocg, ycocg_to_rgb
-from felics_tpu.format import ColorType, Header, PixelDepth
+from felics_tpu_torch import errors
+from felics_tpu_torch.config import CodingConfig, TileConfig, tiled_config_for_depth
+from felics_tpu_torch.core.color import rgb_to_ycocg, ycocg_to_rgb
 from felics_tpu_torch.device import (
     neighbours, resolve_device, to_host, upload_image,
 )
+from felics_tpu_torch.format import ColorType, Header, PixelDepth, header_for_array
 from felics_tpu_torch.ops import tile_codec
 from felics_tpu_torch.ops.bits import bit_length, words_to_bytes
 from felics_tpu_torch.parallel import flct

@@ -18,6 +18,7 @@ import felics_tpu_torch
 from felics_tpu import errors
 from felics_tpu.config import TileConfig
 from felics_tpu_torch import api
+from felics_tpu_torch import errors as port_errors
 
 CPU = "cpu"
 TC = TileConfig(8, 8)
@@ -84,7 +85,7 @@ def test_mixed_batch_with_a_bad_member_raises_like_reference():
     ]
     with pytest.raises(errors.InvalidSignature):
         felics_tpu.decompress_images_bytes(blobs, backend="jax")
-    with pytest.raises(errors.InvalidSignature):
+    with pytest.raises(port_errors.InvalidSignature):
         api.decompress_images_bytes(blobs, device=CPU)
 
 
@@ -121,17 +122,21 @@ def test_cuda_without_a_card_raises():
 
 
 def test_port_imports_no_jax():
-    """Importing every module of the port and running a CPU round trip
-    loads no module of JAX."""
+    """Importing every module of the port and running CPU round trips of an
+    FLCS, an FLCT and a 1x1 image loads no module of JAX and none of the
+    reference package felics_tpu."""
     code = (
-        "import sys, numpy as np\n"
-        "import felics_tpu_torch, felics_tpu_torch.api, felics_tpu_torch.convert\n"
-        "import felics_tpu_torch.core.codec, felics_tpu_torch.ops.kscan\n"
-        "import felics_tpu_torch.ops.bitpack, felics_tpu_torch.ops.tile_codec\n"
+        "import importlib, pkgutil, sys, numpy as np\n"
+        "import felics_tpu_torch as ft\n"
+        "for m in pkgutil.walk_packages(ft.__path__, 'felics_tpu_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
         "img = np.arange(30, dtype=np.uint8).reshape(5, 6)\n"
-        "b = felics_tpu_torch.compress_image_bytes(img, device='cpu')\n"
-        "assert (felics_tpu_torch.decompress_image_bytes(b, device='cpu') == img).all()\n"
-        "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib'))]\n"
+        "for im, kw in ((img, {}), (img, {'container': 'flct'}),\n"
+        "               (np.array([[[9, 8, 7]]], np.uint16), {})):\n"
+        "    b = ft.compress_image_bytes(im, device='cpu', **kw)\n"
+        "    assert (ft.decompress_image_bytes(b, device='cpu') == im).all()\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in\n"
+        "       ('jax', 'jaxlib', 'felics_tpu')]\n"
         "assert not bad, bad\n"
     )
     proc = subprocess.run(

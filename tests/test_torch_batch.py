@@ -7,7 +7,6 @@ import numpy as np
 import pytest
 import torch
 
-from felics_tpu import errors
 from felics_tpu.config import TileConfig
 from felics_tpu.parallel import batch as ref_batch
 from felics_tpu.parallel import tiling as ref
@@ -15,6 +14,7 @@ from felics_tpu_torch import (
     compress_tiled_batch,
     compress_tiled_bytes,
     decompress_tiled_batch,
+    errors,
 )
 from felics_tpu_torch.parallel import flct
 

@@ -1,8 +1,9 @@
 """The FLCS kernels K3 (felics_tpu_torch/csrc/flcs_kscan.cu) and K4
-(felics_tpu_torch/csrc/flcs_decode.cu) against their plain versions, and
-the two plain versions of K4 against each other.
+(felics_tpu_torch/csrc/flcs_decode.cu) against their plain versions, the
+two plain versions of K4 against each other, and where K4 keeps its state.
 
-This module imports no JAX, so it runs on a card as well as here: inputs
+This module imports no JAX and nothing of felics_tpu, so it runs on a card
+as well as here: inputs
 are made with numpy from a seed and encoded by the port itself. The kernel
 cases carry the ``cuda`` marker and skip where torch.cuda.is_available() is
 False; the plain-version cases run on the CPU. Tolerance zero: every output
@@ -16,10 +17,10 @@ import numpy as np
 import pytest
 import torch
 
-from felics_tpu.api import header_for_array
-from felics_tpu.config import config_for_depth
 from felics_tpu_torch import api
+from felics_tpu_torch.config import config_for_depth
 from felics_tpu_torch.core import codec
+from felics_tpu_torch.format import header_for_array
 from felics_tpu_torch.ops import analysis, kscan
 
 CPU = torch.device("cpu")
@@ -58,6 +59,7 @@ CASES = [
     ("rgb16 8x6", _image(6, (8, 6, 3), np.uint16, False)),
     ("gray8 1x50", _image(7, (1, 50), np.uint8, True)),
     ("gray8 50x1", _image(8, (50, 1), np.uint8, True)),
+    ("gray8 2x2", _image(9, (2, 2), np.uint8, False)),
 ]
 IDS = [c[0] for c in CASES]
 
@@ -114,3 +116,85 @@ def test_cuda_decode_scan_matches_plain_version(cuda, name, img):
         for g, r in zip(got, plain(words, h, w, cfg, c)):
             assert torch.equal(g, r)
     assert torch.equal(got[0][0], planes)
+
+
+@pytest.mark.parametrize("K,max_context,width,limit,want", [
+    (6, 510, 512, 232448, (8, True, True)),
+    (6, 510, 60000, 232448, (8, True, False)),
+    (15, 131070, 512, 232448, (16, False, True)),
+    (15, 131070, 58111, 232448, (16, False, True)),
+    (15, 131070, 58112, 232448, (16, False, False)),
+    (6, 510, 512, 48 * 1024, (8, True, True)),
+])
+def test_decode_layout(K, max_context, width, limit, want):
+    """The 8-bit k-table (16,352 bytes) sits in shared memory, the 16-bit
+    one (8.4 MB) does not; the row ring takes what is left, up to the
+    block's limit, and a wider row goes to global scratch."""
+    assert codec.decode_layout(K, max_context, width, limit) == want
+
+
+def _decode_against_scalar(words, h, w, cfg, c, plains):
+    got = codec.decode_scan(words, h, w, cfg, c)
+    for plain in plains:
+        for g, r in zip(got, plain(words, h, w, cfg, c)):
+            assert torch.equal(g, r)
+    return got
+
+
+@pytest.mark.cuda
+def test_cuda_decode_scan_wide_row(cuda):
+    """A row too wide for the shared ring: K4 keeps it in global scratch."""
+    from felics_tpu_torch.ops import _build
+
+    img = _image(10, (2, 60000), np.uint8, True)
+    planes, h, w, cfg = _planes(img, cuda)
+    limit = _build.library().flcs_decode_smem_limit()
+    assert not codec.decode_layout(cfg.num_k, cfg.max_context, w, limit)[2]
+    payload = api.compress_image_bytes(img, device=cuda)[14:]
+    words = torch.from_numpy(codec.payload_words([payload]).view(np.int32)).to(cuda)
+    got = _decode_against_scalar(words, h, w, cfg, 1, (codec.decode_scan_scalar,))
+    assert torch.equal(got[0][0], planes)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [np.uint8, np.uint16])
+def test_cuda_decode_scan_unequal_lanes(cuda, dtype):
+    """Lanes of unequal payload length in one launch, plus a corrupt row."""
+    imgs = [_image(11, (20, 30), dtype, True), _image(12, (20, 30), dtype, False),
+            np.zeros((20, 30), dtype)]
+    payloads = [api.compress_image_bytes(im, device=cuda)[14:] for im in imgs]
+    assert len({len(p) for p in payloads}) == 3
+    corrupt = bytearray(payloads[1])
+    corrupt[len(corrupt) // 3] ^= 0x5A
+    rows = codec.payload_words(payloads + [bytes(corrupt)])
+    words = torch.from_numpy(rows.view(np.int32)).to(cuda)
+    cfg = config_for_depth(header_for_array(imgs[0]).pixel_depth)
+    got = _decode_against_scalar(words, 20, 30, cfg, 1,
+                                 (codec.decode_scan_ref, codec.decode_scan_scalar))
+    for i, im in enumerate(imgs):
+        assert np.array_equal(got[0][i, 0].cpu().numpy(), im.reshape(-1).astype(np.int32))
+
+
+def _one_context_updates(cuda, contexts, seed):
+    rng = np.random.default_rng(seed)
+    G, n = contexts.shape
+    residual = torch.from_numpy(rng.integers(0, 256, (G, n)).astype(np.int32)).to(cuda)
+    context = torch.from_numpy(contexts).to(cuda)
+    oor = torch.ones((G, n), dtype=torch.bool, device=cuda)
+    return residual, kscan.sort_updates(context, oor)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", ["one long segment", "one-update segments"])
+def test_cuda_kscan_segment_shapes(cuda, shape):
+    """K3 on a single segment of 5,000 updates per lane, and on 5,000
+    segments of one update each."""
+    from felics_tpu_torch.config import CONFIG_8BIT
+
+    G, n = 2, 5000
+    contexts = (np.zeros((G, n), np.int64) if shape == "one long segment"
+                else np.tile(np.arange(n, dtype=np.int64)[::-1], (G, 1)))
+    residual, su = _one_context_updates(cuda, contexts, 3)
+    assert int(su.max_rank.max()) == (n if shape == "one long segment" else 1)
+    got = kscan.kscan(residual, su, CONFIG_8BIT)
+    assert torch.equal(got.long(), kscan.kscan_ref(residual, su, CONFIG_8BIT))
