@@ -21,16 +21,18 @@ Phases, one line each, any failure exits non-zero and prints no result:
    batch's shapes;
 4. corrupt payloads: flipped bytes in gray8 and rgb8 containers, FLCT and
    (after phase 6) FLCS, decode to an image of the right shape or raise
-   felics_tpu.errors.DecompressionError, within a fixed time;
+   felics_tpu_torch.errors.DecompressionError, within a fixed time;
 5. the FLCS kernels against their plain PyTorch versions on the card,
    exact: per-pixel k of the k scan (K3), and planes, end bit and overrun
    flag of the decoder (K4), on small gray8/gray16/rgb8/rgb16 cases, the
    0/255 halving image, 1x50 and 50x1, K4 against both its plain versions
    (tensor ops, and Python ints lane by lane); both kernels timed beside
-   their plain versions on 4 lanes of 64x64 gray8; then at the main path's
-   full shapes (phase 6's batches): K3 against its plain version, K4
-   against the scalar plain version on the batch's word rows plus one
-   row with flipped bytes;
+   their plain versions on 4 lanes of 64x64 gray8; K4's k-table zeroing
+   timed alone (1x2 images); a 2x60000 image whose row ring does not fit
+   in shared memory; then at the main path's full shapes (phase 6's
+   batches): K3 against its plain version, K4 against the scalar plain
+   version on the batch's word rows and on one row with flipped bytes,
+   both kernels timed there (CUDA events, >= 5 warm launches);
 6. the FLCS main path at full size through felics_tpu_torch.api on
    device="cuda": 4x512^2 gray8, 2x512^2x3 rgb8 and 2x512^2 gray16 through
    compress_images_bytes / decompress_images_bytes: containers
@@ -39,6 +41,11 @@ Phases, one line each, any failure exits non-zero and prints no result:
    one FLCT image routed through the API, K3 and K4 launched (counters),
    times from CUDA events beside the native codec on one host core.
 
+No module of JAX or of the JAX package felics_tpu is imported; the native
+codec is reached through felics_tpu_torch.native (native/build.py builds
+it). Each kernel's entry in the kernels line carries its time and its
+plain version's at the main path's shape, its bound (bytes at 3.35 TB/s
+against operations), its launches on the main path and per call.
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.
 """

@@ -47,7 +47,7 @@ from felics_tpu_torch.ops.bits import (
     MASK32, bit_length, k_select, shl32, shr32, to_u32_value, words_to_bytes,
     wrap32,
 )
-from felics_tpu_torch.ops.kscan import check_cfg, compute_k
+from felics_tpu_torch.ops.kscan import check_cfg, check_kernel_k, compute_k
 
 # Kernel launches made by ``decode_scan`` (plain-version calls are not
 # counted). Callers reset it to 0 to see what a run launched.
@@ -408,6 +408,7 @@ def decode_scan(
         return decode_scan_ref(words, height, width, cfg, channels)
     if words.device.type != "cuda":
         raise ValueError(f"unsupported device {words.device}")
+    check_kernel_k(K)
     G, W = words.shape
     dev = words.device
     words = words.contiguous()

@@ -35,18 +35,27 @@
 //   registers. A row too wide for shared memory keeps its ring in a
 //   global scratch row of the same layout (the wrapper decides, the
 //   kernel is the same).
-// - The k-table. Rows are padded to RS = 8 or 16 int32 and read and
-//   written as int4 vectors; the k choice and the row minimum are
-//   compare trees. When the table fits in 48 KB (8-bit: 511 x 8 x 4 =
-//   16,352 bytes) it lives in shared memory; the 16-bit one (131,071 x 16 x
-//   4 = 8.4 MB) stays in global scratch, where it fits the 50 MB L2. The
-//   whole block zeroes it before each channel with int4 stores.
-// - Bits. A 64-bit register window holds the next 32 to 64 bits of the
-//   stream; it is refilled a word at a time from a word fetched one refill
-//   ahead, so no field read waits on a load whose address depends on the
-//   decoded data. The unary run counts ones with __clz on the window.
-// - The phase-in remainder (number + left) % n is a compare and subtract:
-//   number < n and left < n always hold, whatever the bits.
+// - The k-table. K is a template constant (6 or 15, the two shipped
+//   configs), so the k choice, the update and the row minimum unroll with
+//   no bounds tests; the choice and the minimum are compare trees. Rows
+//   are padded to RS = 8 or 16 int32 and moved as int4 vectors. When the
+//   table fits in 48 KB (8-bit: 511 x 8 x 4 = 16,352 bytes) it lives in
+//   shared memory; the 16-bit one (131,071 x 16 x 4 = 8.4 MB) stays in
+//   global scratch, where it fits the 50 MB L2. The whole block zeroes it
+//   before each channel with int4 stores.
+// - Bits. Three words sit in registers, the third fetched when the first
+//   is used up, so no field read waits on a load whose address depends on
+//   the decoded data; a funnel shift reads 32 bits at any offset. The
+//   unary run counts ones with __clz.
+// - In range, a context of 0 leaves one symbol and no bits (the value is
+//   the low neighbour); otherwise the phase-in remainder (number + left)
+//   % n is a compare and subtract: number < n and left < n always hold,
+//   whatever the bits.
+//
+// Measured on an H100 (chip_smoke.py; PERF.md): ~0.1 us a pixel step on
+// 8-bit synthetic images against 0.39 for one thread reading everything
+// from device memory. What is left is the step's own chain of dependent
+// integer instructions and branches, issued by one warp.
 //
 // Layout: words (G, W) uint32 big-endian rows; tables (G, table_stride)
 // int32 scratch, table_stride = (max_context + 1) * RS, used unless the
@@ -72,62 +81,57 @@ __device__ __forceinline__ int32_t sub32(int32_t a, int32_t b) {
   return static_cast<int32_t>(static_cast<uint32_t>(a) - static_cast<uint32_t>(b));
 }
 
-// MSB-first reader of one lane's words through a 64-bit window: `buf`
-// holds the next `cnt` bits left-aligned, zeros below them.
+// MSB-first reader of one lane's words: the current word, the next, and
+// the one after fetched ahead; a funnel shift reads 32 bits at any offset.
 struct BitReader {
-  const uint32_t* row;
-  long long W;
-  uint64_t buf;
-  int cnt;
-  long long loaded;  // words moved into buf so far
-  uint32_t next;     // word `loaded` (clamped), fetched ahead of its use
+  const uint32_t* wp;    // the word after w2; stops at the last word
+  const uint32_t* last;  // the row's last word
+  uint32_t w0, w1, w2;
+  int s;                 // bits of w0 consumed, 0..31
+  long long base;        // stream position of w0's first bit
 
-  // The reference's gather clamps an index past the buffer to its end.
-  __device__ __forceinline__ uint32_t word(long long i) const {
-    return __ldg(row + (i < W ? i : W - 1));
-  }
-
-  __device__ __forceinline__ void init(const uint32_t* r, long long w) {
-    row = r;
-    W = w;
-    buf = 0;
-    cnt = 0;
-    loaded = 0;
-    next = word(0);
-  }
-
-  // At least 32 bits in the window afterwards.
-  __device__ __forceinline__ void need32() {
-    if (cnt < 32) {
-      buf |= static_cast<uint64_t>(next) << (32 - cnt);
-      cnt += 32;
-      ++loaded;
-      next = word(loaded);
-    }
+  // A read past the words gives the last word again, as the reference's
+  // clamped gather does.
+  __device__ __forceinline__ void init(const uint32_t* row, long long W) {
+    last = row + (W - 1);
+    w0 = __ldg(row);
+    w1 = __ldg(row + (W > 1 ? 1 : 0));
+    w2 = __ldg(row + (W > 2 ? 2 : W - 1));
+    wp = row + (W > 3 ? 3 : W - 1);
+    s = 0;
+    base = 0;
   }
 
   __device__ __forceinline__ uint32_t peek32() const {
-    return static_cast<uint32_t>(buf >> 32);
+    return __funnelshift_l(w1, w0, s);
   }
 
-  // The next n bits, 0 < n <= 32 and n <= cnt.
+  // The next n bits, 0 < n <= 32.
   __device__ __forceinline__ uint32_t peek(int n) const {
-    return static_cast<uint32_t>(buf >> (64 - n));
+    return peek32() >> (32 - n);
   }
 
-  // n <= cnt and n <= 32.
+  // n <= 32: crosses at most one word.
   __device__ __forceinline__ void skip(int n) {
-    buf <<= n;
-    cnt -= n;
+    s += n;
+    if (s >= 32) {
+      s -= 32;
+      base += 32;
+      w0 = w1;
+      w1 = w2;
+      w2 = __ldg(wp);
+      wp += wp < last ? 1 : 0;
+    }
   }
 
-  __device__ __forceinline__ long long pos() const { return loaded * 32 - cnt; }
+
+  __device__ __forceinline__ long long pos() const { return base + s; }
 };
 
 struct Params {
   const uint32_t* words;
   long long W;
-  int C, height, width, K, max_context, count_scaling;
+  int C, height, width, max_context, count_scaling;
   int32_t* tables;
   long long table_stride;
   int32_t* rings;
@@ -136,11 +140,11 @@ struct Params {
   int32_t* overrun;
 };
 
-template <int RS>
+template <int K, int RS>
 struct Lane {
   BitReader br;
   int32_t* table;
-  int K, max_context, count_scaling;
+  int max_context, count_scaling;
   long long limit;
   bool ov;
 
@@ -150,26 +154,25 @@ struct Lane {
     const int32_t l = va < vb ? va : vb;
     const int32_t d = sub32(h, l);  // wraps negative on corrupt planes
     const int ctx = d < 0 ? 0 : (d > max_context ? max_context : d);
-    br.need32();
     const uint32_t head = br.peek32();
 
     if (head >> 31) {  // in range: phase-in over nn = ctx + 1
+      if (ctx == 0) {  // one symbol, no bits: the value is l
+        br.skip(1);
+        return l;
+      }
       const int nn = ctx + 1;
       const int m = 31 - __clz(nn);
-      const int left_p = nn - (1 << m);
-      const int right_p = (2 << m) - nn;
-      // The marker, m bits and one more: m + 2 <= 19 bits.
-      const uint32_t bits = br.peek(m + 2);
-      const int first_m = static_cast<int>((bits >> 1) & ((1u << m) - 1u));
-      int number, len;
-      if (first_m < right_p) {
-        number = first_m;
-        len = m;
-      } else {
-        number = (first_m - right_p) * 2 + right_p + static_cast<int>(bits & 1u);
-        len = m + 1;
-      }
-      br.skip(1 + len);
+      const int p2m = 1 << m;
+      const int left_p = nn - p2m;
+      const int right_p = p2m - left_p;
+      // The marker, then m + 1 bits fm2 (m + 2 <= 19 in all): the first m
+      // are the short code; a long code is all m + 1, less right_p.
+      const int fm2 = static_cast<int>(br.peek(m + 2)) - 2 * p2m;
+      const int first_m = fm2 >> 1;
+      const bool longer = first_m >= right_p;
+      const int number = longer ? fm2 - right_p : first_m;
+      br.skip(longer ? m + 2 : m + 1);
       const int r = number + left_p;
       return add32(r >= nn ? r - nn : r, l);
     }
@@ -190,7 +193,6 @@ struct Lane {
     br.skip(2);
     uint32_t q = 0;
     while (true) {
-      br.need32();
       const uint32_t inv = ~br.peek32();
       if (inv != 0u) {
         const int lead = __clz(static_cast<int>(inv));
@@ -207,7 +209,6 @@ struct Lane {
         break;
       }
     }
-    br.need32();
     const uint32_t rem = k > 0 ? br.peek(k) : 0u;
     br.skip(k);
     const int32_t encoded = static_cast<int32_t>((q << k) + rem);
@@ -235,24 +236,23 @@ struct Lane {
 
 // One channel plane of n = height * width >= 2 pixels; `ring` holds
 // width + 1 int32. Inlined, so the lane's state stays in registers.
-template <int RS>
-__device__ __forceinline__ void decode_plane(Lane<RS>& s, int32_t* plane, int height, int width,
+template <int K, int RS>
+__device__ __forceinline__ void decode_plane(Lane<K, RS>& s, int32_t* plane, int height, int width,
                              int32_t* ring) {
   const long long n = static_cast<long long>(height) * width;
-  s.br.need32();
   const int32_t v0 = static_cast<int32_t>(s.br.peek32());
   s.br.skip(32);
-  s.br.need32();
   const int32_t v1 = static_cast<int32_t>(s.br.peek32());
   s.br.skip(32);
   plane[0] = v0;
   plane[1] = v1;
 
+  int32_t* dst = plane + 2;
   if (width == 1 || height == 1) {  // one row or column: neighbours i-1, i-2
     int32_t p2 = v0, p1 = v1;
-    for (long long i = 2; i < n; ++i) {
+    for (int32_t* const stop = plane + n; dst < stop; ++dst) {
       const int32_t v = s.step(p1, p2);
-      plane[i] = v;
+      *dst = v;
       p2 = p1;
       p1 = v;
     }
@@ -263,10 +263,10 @@ __device__ __forceinline__ void decode_plane(Lane<RS>& s, int32_t* plane, int he
   ring[0] = v0;
   ring[1] = v1;
   int32_t p2 = v0, p1 = v1;
-  for (int x = 2; x < width; ++x) {
+  for (int x = 2; x < width; ++x, ++dst) {
     const int32_t v = s.step(p1, p2);
     ring[x] = v;
-    plane[x] = v;
+    *dst = v;
     p2 = p1;
     p1 = v;
   }
@@ -274,25 +274,26 @@ __device__ __forceinline__ void decode_plane(Lane<RS>& s, int32_t* plane, int he
   // above-above) below it; x > 0 takes (left, above).
   int32_t up2 = 0;  // the first column two rows up
   for (int y = 1; y < height; ++y) {
-    int32_t* prow = plane + static_cast<long long>(y) * width;
     const int32_t up = ring[0];
     int32_t above = ring[1];
     int32_t v = s.step(up, y == 1 ? above : up2);
     up2 = up;
     ring[0] = v;
-    prow[0] = v;
-    for (int x = 1; x < width; ++x) {
-      const int32_t above_next = ring[x + 1];  // ring[width] is padding
+    *dst++ = v;
+    const int32_t* src = ring + 2;  // ring[width] is padding
+    for (int32_t* slot = ring + 1; slot < ring + width; ++slot, ++src, ++dst) {
+      const int32_t above_next = *src;
       v = s.step(v, above);
-      ring[x] = v;
-      prow[x] = v;
+      *slot = v;
+      *dst = v;
       above = above_next;
     }
   }
 }
 
-template <int RS, bool kTableShared, bool kRingShared>
+template <int K, bool kTableShared, bool kRingShared>
 __global__ void __launch_bounds__(kThreads) flcs_decode_kernel(const Params p) {
+  constexpr int RS = (K + 3) & ~3;
   extern __shared__ int4 smem4[];
   int32_t* smem = reinterpret_cast<int32_t*>(smem4);
   const int lane = blockIdx.x;
@@ -302,11 +303,10 @@ __global__ void __launch_bounds__(kThreads) flcs_decode_kernel(const Params p) {
   int32_t* ring = kRingShared ? smem + (kTableShared ? table_ints : 0)
                               : p.rings + lane * (p.width + 1LL);
 
-  Lane<RS> s;
+  Lane<K, RS> s;
   if (threadIdx.x == 0) {
     s.br.init(p.words + lane * p.W, p.W);
     s.table = table;
-    s.K = p.K;
     s.max_context = p.max_context;
     s.count_scaling = p.count_scaling;
     s.limit = p.W * 32;
@@ -330,9 +330,9 @@ __global__ void __launch_bounds__(kThreads) flcs_decode_kernel(const Params p) {
   }
 }
 
-template <int RS, bool kTableShared, bool kRingShared>
+template <int K, bool kTableShared, bool kRingShared>
 cudaError_t launch(const Params& p, int G, size_t smem, cudaStream_t stream) {
-  auto kernel = flcs_decode_kernel<RS, kTableShared, kRingShared>;
+  auto kernel = flcs_decode_kernel<K, kTableShared, kRingShared>;
   if (smem > static_cast<size_t>(kDefaultSmem)) {
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
@@ -342,15 +342,15 @@ cudaError_t launch(const Params& p, int G, size_t smem, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-template <int RS>
+template <int K>
 cudaError_t dispatch(const Params& p, int G, bool table_shared, bool ring_shared,
                      size_t smem, cudaStream_t stream) {
   if (table_shared) {
-    return ring_shared ? launch<RS, true, true>(p, G, smem, stream)
-                       : launch<RS, true, false>(p, G, smem, stream);
+    return ring_shared ? launch<K, true, true>(p, G, smem, stream)
+                       : launch<K, true, false>(p, G, smem, stream);
   }
-  return ring_shared ? launch<RS, false, true>(p, G, smem, stream)
-                     : launch<RS, false, false>(p, G, smem, stream);
+  return ring_shared ? launch<K, false, true>(p, G, smem, stream)
+                     : launch<K, false, false>(p, G, smem, stream);
 }
 
 }  // namespace
@@ -370,14 +370,14 @@ int flcs_decode_smem_limit(void) {
 }
 
 // Launches K4 on `stream`, one block of 256 threads per lane; returns
-// cudaGetLastError() (0 = ok). `rs` is the table's row stride, 8 or 16;
-// `tables` is read only when `table_shared` is 0, `rings` only when
-// `ring_shared` is 0.
+// cudaGetLastError() (0 = ok). K is 6 with a row stride `rs` of 8, or 15
+// with 16; `tables` is read only when `table_shared` is 0, `rings` only
+// when `ring_shared` is 0.
 int flcs_decode(const void* words, long long W, int G, int C, int height, int width,
                 int K, int max_context, int count_scaling, int rs, int table_shared,
                 void* tables, int ring_shared, void* rings, void* out, void* end_bit,
                 void* overrun, void* stream) {
-  if ((rs != 8 && rs != 16) || K < 1 || K > rs) {
+  if (!((K == 6 && rs == 8) || (K == 15 && rs == 16))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const Params p{static_cast<const uint32_t*>(words),
@@ -385,7 +385,6 @@ int flcs_decode(const void* words, long long W, int G, int C, int height, int wi
                  C,
                  height,
                  width,
-                 K,
                  max_context,
                  count_scaling,
                  static_cast<int32_t*>(tables),
@@ -397,8 +396,8 @@ int flcs_decode(const void* words, long long W, int G, int C, int height, int wi
   const size_t smem = (table_shared ? (max_context + 1ULL) * rs * 4 : 0) +
                       (ring_shared ? (width + 1ULL) * 4 : 0);
   const cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  const cudaError_t e = rs == 8 ? dispatch<8>(p, G, table_shared, ring_shared, smem, s)
-                                : dispatch<16>(p, G, table_shared, ring_shared, smem, s);
+  const cudaError_t e = K == 6 ? dispatch<6>(p, G, table_shared, ring_shared, smem, s)
+                               : dispatch<15>(p, G, table_shared, ring_shared, smem, s);
   return static_cast<int>(e);
 }
 

@@ -11,8 +11,8 @@
 // order kept within a context), their residuals gathered into that order,
 // and each slot's rank within its context. A slot of rank 0 below the
 // lane's out-of-range count starts a segment; its thread walks the slots
-// after it until the next rank 0 or the count, with the K-entry table
-// (K <= 15) in registers: for each update it writes the k chosen BEFORE the
+// after it until the next rank 0 or the count, with the K-entry table in
+// registers: for each update it writes the k chosen BEFORE the
 // update (the last index of the row's minimum) to k[lane, slot], adds the
 // Rice length row (v >> k) + 1 + k, and halves the row when its minimum
 // exceeds count_scaling (strictly; -1 = never). Every other thread returns
@@ -31,7 +31,9 @@
 // updates. Its loads are not on that chain: a segment's residuals and
 // ranks are contiguous and independent of the table, so the thread loads
 // them kPrefetch slots ahead, in registers, while it updates the table.
-// The k choice and the row minimum are compare trees (flcs_common.cuh).
+// K is a template constant (6 or 15, the two shipped configs), so the
+// update unrolls with no bounds tests; the k choice and the row minimum
+// are compare trees (flcs_common.cuh).
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -43,13 +45,14 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kPrefetch = 8;
 
-template <int KMAX>
+template <int K>
 __global__ void __launch_bounds__(kThreads)
     flcs_kscan_kernel(const int32_t* __restrict__ residual,
                       const long long* __restrict__ rank,
                       const long long* __restrict__ num_oor,
                       int32_t* __restrict__ k_out, long long total, long long n,
-                      int K, int count_scaling) {
+                      int count_scaling) {
+  constexpr int KMAX = K <= 8 ? 8 : 16;
   const long long s = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (s >= total) return;
   const long long lane = s / n;
@@ -109,11 +112,10 @@ __global__ void __launch_bounds__(kThreads)
 
 extern "C" {
 
-// Launches K3 on `stream` over G * n > 0 slots; returns cudaGetLastError()
-// (0 = ok).
+// Launches K3 on `stream` over G * n > 0 slots, K = 6 or 15; returns
+// cudaGetLastError() (0 = ok).
 int flcs_kscan(const void* residual, const void* rank, const void* num_oor, void* k_out,
                int G, long long n, int K, int count_scaling, void* stream) {
-  if (K < 1 || K > 16) return static_cast<int>(cudaErrorInvalidValue);
   const long long total = static_cast<long long>(G) * n;
   const unsigned blocks = static_cast<unsigned>((total + kThreads - 1) / kThreads);
   const cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
@@ -121,12 +123,12 @@ int flcs_kscan(const void* residual, const void* rank, const void* num_oor, void
   const auto* rk = static_cast<const long long*>(rank);
   const auto* oor = static_cast<const long long*>(num_oor);
   auto* k = static_cast<int32_t*>(k_out);
-  if (K <= 8) {
-    flcs_kscan_kernel<8><<<blocks, kThreads, 0, s>>>(res, rk, oor, k, total, n, K,
-                                                     count_scaling);
+  if (K == 6) {
+    flcs_kscan_kernel<6><<<blocks, kThreads, 0, s>>>(res, rk, oor, k, total, n, count_scaling);
+  } else if (K == 15) {
+    flcs_kscan_kernel<15><<<blocks, kThreads, 0, s>>>(res, rk, oor, k, total, n, count_scaling);
   } else {
-    flcs_kscan_kernel<16><<<blocks, kThreads, 0, s>>>(res, rk, oor, k, total, n, K,
-                                                      count_scaling);
+    return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -198,3 +198,14 @@ def test_cuda_kscan_segment_shapes(cuda, shape):
     assert int(su.max_rank.max()) == (n if shape == "one long segment" else 1)
     got = kscan.kscan(residual, su, CONFIG_8BIT)
     assert torch.equal(got.long(), kscan.kscan_ref(residual, su, CONFIG_8BIT))
+
+
+@pytest.mark.parametrize("K,ok", [(5, False), (6, True), (15, True), (16, False)])
+def test_kernels_take_the_shipped_k_counts(K, ok):
+    """The CUDA kernels are compiled for K = 6 (8-bit) and K = 15 (16-bit)
+    only; any other K raises before a launch."""
+    if ok:
+        kscan.check_kernel_k(K)
+    else:
+        with pytest.raises(ValueError, match="K in"):
+            kscan.check_kernel_k(K)
