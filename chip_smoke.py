@@ -534,6 +534,8 @@ def main() -> None:
             lanes=chans.shape[0], kscan_err=e, kscan_ms=k3_ms,
             kscan_plain_ms=k3_plain_ms, kscan_bound_ms=full[name]["kscan_bound"][0],
             out_of_range_updates=n_oor,
+            # pixels K4's context-0 fast path decodes
+            context0_in_range_share=float(((a.context == 0) & a.in_range).float().mean()),
             segments=int(((su.rank == 0) & (torch.arange(su.rank.shape[1], device=dev)
                                              < su.num_oor[:, None])).sum()),
             longest_segment=int(su.max_rank.max()),

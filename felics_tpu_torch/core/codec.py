@@ -15,9 +15,10 @@ and one of the payload. Degenerate dims (fewer than two pixels) carry raw
 Decode, per group of same-shape containers (lanes = images): one upload of
 the zero-padded word rows, the per-pixel scan (kernel K4 on CUDA, one
 block per image, one thread of it walking the pixels), inverse YCoCg and
-range flags on the device, one device-to-host copy. A lane whose cursor ends past its payload, or whose
-unary run ran off the words, raises ``errors.IoError``; a value outside the
-depth raises ``errors.InvalidValue``.
+range flags on the device, one device-to-host copy. A lane whose cursor
+ends past its payload, or whose unary run ran off the words, raises
+``errors.IoError``; a value outside the depth raises
+``errors.InvalidValue``.
 
 Every function takes ``device``; a CUDA tensor gets the kernel or an
 exception, never the plain version.
