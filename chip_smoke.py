@@ -3,22 +3,26 @@
 
     python3 chip_smoke.py            # the smoke run below
     python3 chip_smoke.py --stages   # FLCS stage breakdown and idle share
+    python3 chip_smoke.py --flct     # FLCT kernels and main path alone
 
 Phases, one line each, any failure exits non-zero and prints no result:
 
 1. card and toolchain: nvidia-smi name and power limit, torch/CUDA/nvcc
-   versions, the nvcc build of felics_tpu_torch/csrc (time, ptxas usage);
-2. both kernels against their plain PyTorch versions on the card, exact to
-   the word, the bit count and the pixel, on small cases (gray8 with zero
-   and real priors, rgb8, rgb16, gray16, odd 13x9 at tile 5x3) and on one
-   noise case that makes the encoder relaunch at a wider width;
+   versions, the nvcc build of felics_tpu_torch/csrc (time, ptxas usage;
+   K1 and K2 must have no stack frame and no spills);
+2. both FLCT kernels (K1, K2) against their plain PyTorch versions on the
+   card, exact to the word, the bit count and the pixel, on small cases
+   (gray8 with zero and real priors, rgb8, rgb16, gray16, odd 13x9 at tile
+   5x3, 45x50 at tile 40x24), on one noise case that makes the encoder
+   relaunch at a wider width, and K2 on garbage words;
 3. the main path at full size: 12x512^2 gray8, 8x512^2x3 rgb8 and 4x512^2
-   gray16 (bench.py's synthetic recipe, seed 0) through
-   compress_tiled_batch / decompress_tiled_batch at tile 32x32 on
+   gray16 (bench.py's synthetic recipe, seed 0): K1 and K2 against their
+   plain versions at each batch's shapes (tile 32) and timed there and on
+   gray8 at tile 64; then each class at tile 32, and gray8 at tiles 64
+   and 256, through compress_tiled_batch / decompress_tiled_batch on
    device="cuda": exact round trips, containers byte-identical to the
    native C++ FLCT codec, both kernels launched (counters), times from
-   CUDA events, and each kernel against its plain version at the gray8
-   batch's shapes;
+   CUDA events;
 4. corrupt payloads: flipped bytes in gray8 and rgb8 containers, FLCT and
    (after phase 6) FLCS, decode to an image of the right shape or raise
    felics_tpu_torch.errors.DecompressionError, within a fixed time;
@@ -54,6 +58,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -139,6 +144,128 @@ def cuda_ms(torch, fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def flct_classes(np):
+    """The FLCT main path's batches: bench.py's recipes, seed 0."""
+    return [
+        ("gray8", synth((512, 512), np.uint8, 12, 6, np)),
+        ("rgb8", synth((512, 512, 3), np.uint8, 8, 6, np)),
+        ("gray16", synth((512, 512), np.uint16, 4, 800, np)),
+    ]
+
+
+def flct_kernel_inputs(torch, dev, images, tile):
+    """K1's and K2's inputs at one batch's shape, as the main path makes
+    them: tiles, per-tile prior, and the words and bits encode_words gives."""
+    from felics_tpu_torch.config import tiled_config_for_depth
+    from felics_tpu_torch.device import upload_image
+    from felics_tpu_torch.format import header_for_array
+    from felics_tpu_torch.parallel import tiling
+
+    cfg = tiled_config_for_depth(header_for_array(images[0]).pixel_depth)
+    tiles = torch.cat([tiling.image_tiles(upload_image(im, dev)[None], tile, tile)
+                       for im in images])
+    per_image = tiles.shape[0] // len(images)
+    _, prior = tiling.k0_prior(tiles, [per_image] * len(images), tile, tile, cfg)
+    words, bits = tiling.encode_words(tiles, prior, cfg, tile, tile)
+    return {"tiles": tiles, "prior": prior, "cfg": cfg, "tile": tile,
+            "words": words, "bits": bits}
+
+
+def flct_kernel_times(torch, ks, reps: int = 10) -> dict:
+    """K1 and K2 at one batch's shape: mean ms of `reps` warm calls of each
+    wrapper (CUDA events) and of the kernel alone (profiler), K2's us a
+    pixel step of one tile's chain, and each kernel's bound (in: tiles, per-tile priors, the words the streams use; out: the
+    words, bit counts, planes)."""
+    from felics_tpu_torch.ops import tile_codec as tcd
+
+    tiles, prior, cfg, tile = ks["tiles"], ks["prior"], ks["cfg"], ks["tile"]
+    words, bits = ks["words"], ks["bits"]
+    nt, c, t = tiles.shape
+    W = words.shape[1]
+    def encode():
+        return tcd.encode_tiles(tiles, cfg, tile, tile, W, prior)
+
+    def decode():
+        return tcd.decode_tiles(words, cfg, tile, tile, c, prior)
+
+    enc, dec = cuda_ms(torch, encode, reps), cuda_ms(torch, decode, reps)
+    used = int(((bits + 31) // 32).sum()) * 4
+    ops = OPS_PER_STEP * tiles.numel()
+    return {"tiles": nt, "planes": c, "tile": tile, "W": W, "encode_ms": enc,
+            "decode_ms": dec, "decode_us_per_step": dec * 1e3 / (c * (t - 2)),
+            # the kernel alone, without the wrapper's checks, allocations
+            # and (encode) zeroing of the word rows
+            "encode_kernel_ms": device_ms(torch, encode, "flct_encode_kernel", reps),
+            "decode_kernel_ms": device_ms(torch, decode, "flct_decode_kernel", reps),
+            "encode_bound": bound(tiles.numel() * 4 + prior.numel() * 4 + used + nt * 8, ops),
+            "decode_bound": bound(used + prior.numel() * 4 + tiles.numel() * 4, ops)}
+
+
+def flct_main_path(np, torch, dev, images, tile, reps: int = 3):
+    """One batch through compress_tiled_batch / decompress_tiled_batch on the
+    card: exact round trips and containers byte-identical to the native C++
+    codec, or fail; ms from CUDA events (mean of `reps` calls after a warm
+    one). Returns the containers and a row of numbers."""
+    from felics_tpu_torch import compress_tiled_batch, decompress_tiled_batch, native
+    from felics_tpu_torch.config import TileConfig
+    from felics_tpu_torch.format import header_for_array
+
+    tc = TileConfig(tile, tile)
+    blobs = compress_tiled_batch(images, tc, device=dev)  # warm
+    decompress_tiled_batch(blobs, device=dev)
+    enc_ms = cuda_ms(torch, lambda: compress_tiled_batch(images, tc, device=dev), reps)
+    dec_ms = cuda_ms(torch, lambda: decompress_tiled_batch(blobs, device=dev), reps)
+    outs = decompress_tiled_batch(blobs, device=dev)
+    for i, (im, out) in enumerate(zip(images, outs)):
+        if out.dtype != im.dtype or not np.array_equal(out, im):
+            fail(f"image {i} of {im.shape} at tile {tile}: round trip is not exact")
+        if blobs[i] != native.compress_tiled(im, header_for_array(im), tile, tile):
+            fail(f"image {i} of {im.shape} at tile {tile}: container differs from "
+                 "the native codec")
+    px = sum(im.shape[0] * im.shape[1] for im in images)
+    raw = sum(im.nbytes for im in images)
+    return blobs, {
+        "images": len(images), "shape": list(images[0].shape), "tile": tile,
+        "encode_ms": enc_ms, "decode_ms": dec_ms,
+        "encode_mpx_s": px / enc_ms / 1e3, "decode_mpx_s": px / dec_ms / 1e3,
+        "combined_mpx_s": 2 * px / (enc_ms + dec_ms) / 1e3,
+        "ratio": raw / sum(len(b) for b in blobs),
+        "exact_round_trip": True, "native_bytes_identical": True,
+    }
+
+
+def ptxas_frames(log: str) -> dict:
+    """{function: (stack frame, spill store, spill load bytes)} from the
+    ``nvcc -Xptxas=-v`` output of a build."""
+    out, cur = {}, None
+    for ln in log.splitlines():
+        if "Function properties for " in ln:
+            cur = ln.split("Function properties for ", 1)[1].strip()
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", ln)
+        if m and cur:
+            out[cur] = tuple(int(g) for g in m.groups())
+            cur = None
+    return out
+
+
+def device_ms(torch, fn, kernel: str, reps: int = 10):
+    """Mean device time (ms) of the kernels whose name holds `kernel` over
+    `reps` calls of fn, from torch.profiler (one warm call first); None
+    when the profiler saw no such kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    spans = [e.time_range.end - e.time_range.start for e in prof.events()
+             if e.device_type.name == "CUDA" and kernel in e.name]
+    return sum(spans) / 1e3 / reps if spans else None
+
+
 def need_gpu_and_repo():
     """(numpy, torch) once a GPU and the repository are there; else fail."""
     try:
@@ -181,28 +308,47 @@ def main() -> None:
     build_s = time.perf_counter() - t0
     ptxas = [ln.strip() for ln in _build.BuildInfo.log.splitlines()
              if "registers" in ln or "stack frame" in ln]
+    frames = ptxas_frames(_build.BuildInfo.log)
     say("1 card", nvidia_smi=card, sms=props.multi_processor_count,
         torch=torch.__version__, cuda=torch.version.cuda, nvcc=nvcc,
         python=sys.version.split()[0], build_s=round(build_s, 3),
         nvcc_s=_build.BuildInfo.seconds, ptxas=ptxas)
+    # K1 and K2 keep their state in registers and shared memory: no stack
+    # frame, no spills (checked when this run built the library).
+    flct_frames = {f: v for f, v in frames.items()
+                   if "flct_encode_kernel" in f or "flct_decode_kernel" in f}
+    if _build.BuildInfo.seconds and (
+            len(flct_frames) < 6 or any(any(v) for v in flct_frames.values())):
+        fail(f"K1/K2 ptxas (stack, spill stores, spill loads): {flct_frames}")
+    say("1 ptxas K1 K2", stack_spill_st_spill_ld=flct_frames)
 
     # ---- phase 2: kernels against their plain versions ------------------
     def both_ways(name, tiles, prior, cfg, th, tw, W):
         """Encode and decode with the kernels and the plain versions on the
-        same device inputs; every output must agree exactly."""
+        same device inputs; every output must agree exactly. Returns both
+        errors and the plain versions' ms (host clock, synchronised)."""
         c = tiles.shape[1]
         wk, bk = tcd.encode_tiles(tiles, cfg, th, tw, W, prior)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
         wr, br = tcd.encode_tiles_ref(tiles, cfg, th, tw, W, prior)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
         enc_err = max(int((wk.long() - wr.long()).abs().max()),
                       int((bk - br).abs().max()))
         dk = tcd.decode_tiles(wk, cfg, th, tw, c, prior)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
         dr = tcd.decode_tiles_ref(wk, cfg, th, tw, c, prior)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
         dec_err = int((dk.long() - dr.long()).abs().max())
         rt_err = int((dk.long() - tiles.long()).abs().max())
         if enc_err or dec_err or rt_err or int(bk.max()) > 32 * W:
             fail(f"{name}: kernel vs plain enc_err={enc_err} dec_err={dec_err}"
                  f" round_trip_err={rt_err} max_bits={int(bk.max())} W={W}")
-        return enc_err, dec_err
+        return enc_err, dec_err, {"encode_plain_ms": (t1 - t0) * 1e3,
+                                  "decode_plain_ms": (t3 - t2) * 1e3}
 
     errs = {"encode": 0, "decode": 0}
     cases = [
@@ -212,6 +358,7 @@ def main() -> None:
         ("rgb16 8x8x3 t4", (8, 8, 3), 65535, (4, 4), False, True),
         ("gray16 16x24 t8", (16, 24), 65535, (8, 8), True, True),
         ("gray8 13x9 t5x3", (13, 9), 255, (5, 3), False, True),
+        ("gray8 45x50 t40x24", (45, 50), 255, (40, 24), True, True),
     ]
     for i, (name, shape, dmax, (th, tw), smooth, use_prior) in enumerate(cases):
         img = small_image(shape, dmax, 100 + i, smooth, np)
@@ -225,8 +372,8 @@ def main() -> None:
         else:
             prior = torch.zeros((c, tcd.num_buckets(cfg), cfg.num_k),
                                 dtype=torch.int32, device=dev)
-        e, d = both_ways(name, tiles, prior, cfg, th, tw,
-                         tcd.encode_width_bound(cfg, t, c))
+        e, d, _ = both_ways(name, tiles, prior, cfg, th, tw,
+                            tcd.encode_width_bound(cfg, t, c))
         errs["encode"], errs["decode"] = max(errs["encode"], e), max(errs["decode"], d)
         say("2 kernels", case=name, tiles=nt, enc_err=e, dec_err=d)
 
@@ -247,96 +394,79 @@ def main() -> None:
     relaunched = tcd.ENCODE_LAUNCHES - before == 2 and words.shape[1] > hint
     if not relaunched:
         fail(f"noise case did not relaunch wider (hint {hint}, W {words.shape[1]})")
-    e, d = both_ways("gray8 noise k=0 prior", tiles, k0_bias, cfg8, 8, 8,
-                     words.shape[1])
+    e, d, _ = both_ways("gray8 noise k=0 prior", tiles, k0_bias, cfg8, 8, 8,
+                        words.shape[1])
     wk, bk = tcd.encode_tiles(tiles, cfg8, 8, 8, words.shape[1], k0_bias)
     if not (torch.equal(wk, words) and torch.equal(bk, bits)):
         fail("relaunched encode differs from a direct launch at that width")
     say("2 kernels", case="gray8 noise relaunch", first_W=hint,
         relaunch_W=words.shape[1], max_bits=int(bits.max()), enc_err=e, dec_err=d)
 
+    # Garbage words (random, and all ones: an endless unary run) for K2,
+    # both depths and 1 or 3 planes.
+    rng2 = np.random.default_rng(2)
+    for depth, c in ((PixelDepth.EIGHT, 1), (PixelDepth.SIXTEEN, 3)):
+        cfg = tiled_config_for_depth(depth)
+        rows = torch.from_numpy(
+            rng2.integers(-(1 << 31), 1 << 31, (40, 8)).astype(np.int32)).to(dev)
+        rows[1] = -1
+        prior = torch.zeros((c, tcd.num_buckets(cfg), cfg.num_k), dtype=torch.int32,
+                            device=dev)
+        dk = tcd.decode_tiles(rows, cfg, 4, 4, c, prior)
+        d = int((dk.long() - tcd.decode_tiles_ref(rows, cfg, 4, 4, c, prior).long())
+                .abs().max())
+        if d:
+            fail(f"garbage words, {depth.name} C={c}: K2 differs from its plain version")
+        errs["decode"] = max(errs["decode"], d)
+        say("2 kernels", case=f"garbage words {depth.name} C={c}", rows=40, dec_err=d)
+
     # ---- phase 3: the main path at full size ----------------------------
     subprocess.run([sys.executable, os.path.join(REPO, "native", "build.py")],
                    check=True, capture_output=True)
+    classes = flct_classes(np)
 
-    classes = [
-        ("gray8", synth((512, 512), np.uint8, 12, 6, np)),
-        ("rgb8", synth((512, 512, 3), np.uint8, 8, 6, np)),
-        ("gray16", synth((512, 512), np.uint16, 4, 800, np)),
-    ]
-    tc = TileConfig(TILE, TILE)
+    # Both kernels against their plain versions at each class's batch shape
+    # (tile 32), exact, and timed there (kernel: mean of 10 warm launches;
+    # plain: its one comparison run); then timed on gray8 at the default
+    # tile 64 (no plain version there: it would take ~4x as long).
+    kt = {}
+    for name, images in classes:
+        ks = flct_kernel_inputs(torch, dev, images, TILE)
+        e, d, plain = both_ways(f"{name} {len(images)}x512^2 t{TILE}", ks["tiles"],
+                                ks["prior"], ks["cfg"], TILE, TILE, ks["words"].shape[1])
+        errs["encode"], errs["decode"] = max(errs["encode"], e), max(errs["decode"], d)
+        kt[name] = {**flct_kernel_times(torch, ks), **plain}
+        say("3 kernels", nvidia_smi=card, cls=name, enc_err=e, dec_err=d,
+            **{k: v for k, v in kt[name].items() if not k.endswith("bound")})
+    ks = flct_kernel_inputs(torch, dev, classes[0][1], 64)
+    kt["gray8 t64"] = flct_kernel_times(torch, ks)
+    say("3 kernels", nvidia_smi=card, cls="gray8",
+        **{k: v for k, v in kt["gray8 t64"].items() if not k.endswith("bound")})
 
-    # Kernels against their plain versions at the gray8 batch's shapes, and
-    # both timed on the card (kernel: mean of 10 launches; plain: 1 run).
-    g8 = classes[0][1]
-    tiles = torch.cat([tiling.image_tiles(upload_image(im, dev)[None],
-                                          TILE, TILE) for im in g8])
-    nt, c, t = tiles.shape
-    _, prior = tiling.k0_prior(tiles, [nt // len(g8)] * len(g8), TILE, TILE, cfg8)
-    words, bits = tiling.encode_words(tiles, prior, cfg8, TILE, TILE)
-    W = words.shape[1]
-    e, d = both_ways("gray8 12x512^2 t32", tiles, prior, cfg8, TILE, TILE, W)
-    errs["encode"], errs["decode"] = max(errs["encode"], e), max(errs["decode"], d)
-    timing = {
-        "encode": (
-            cuda_ms(torch, lambda: tcd.encode_tiles(tiles, cfg8, TILE, TILE, W, prior), 10),
-            cuda_ms(torch, lambda: tcd.encode_tiles_ref(tiles, cfg8, TILE, TILE, W, prior), 1),
-        ),
-        "decode": (
-            cuda_ms(torch, lambda: tcd.decode_tiles(words, cfg8, TILE, TILE, c, prior), 10),
-            cuda_ms(torch, lambda: tcd.decode_tiles_ref(words, cfg8, TILE, TILE, c, prior), 1),
-        ),
-    }
-    blocks = -(-nt // 128)
-    say("3 kernels at gray8 shape", nvidia_smi=card, tiles=nt, W=W,
-        threads=nt, blocks_of_128=blocks, sms=props.multi_processor_count,
-        enc_err=e, dec_err=d,
-        encode_ms=timing["encode"][0], encode_plain_ms=timing["encode"][1],
-        decode_ms=timing["decode"][0], decode_plain_ms=timing["decode"][1])
-
+    # The main path: each class at tile 32, and gray8 at tiles 64 and 256
+    # (256x256 tiles: 48 tiles of 65,536 pixels, one K1 warp a plane and one
+    # K2 thread a tile).
     tcd.ENCODE_LAUNCHES = 0
     tcd.DECODE_LAUNCHES = 0
     blobs_by_class = {}
-    for name, images in classes:
-        blobs = compress_tiled_batch(images, tc, device=dev)  # warm
-        decompress_tiled_batch(blobs, device=dev)
-        reps = 3
-        enc_ms = cuda_ms(torch, lambda: compress_tiled_batch(images, tc, device=dev), reps)
-        dec_ms = cuda_ms(torch, lambda: decompress_tiled_batch(blobs, device=dev), reps)
-        outs = decompress_tiled_batch(blobs, device=dev)
-        for i, (im, out) in enumerate(zip(images, outs)):
-            if out.dtype != im.dtype or not np.array_equal(out, im):
-                fail(f"{name} image {i}: round trip is not exact")
-            if blobs[i] != native.compress_tiled(im, header_for_array(im), TILE, TILE):
-                fail(f"{name} image {i}: container differs from the native codec")
-        px = sum(im.shape[0] * im.shape[1] for im in images)
-        raw = sum(im.nbytes for im in images)
-        blobs_by_class[name] = (images, blobs)
-        say("3 main path", nvidia_smi=card, cls=name, images=len(images),
-            shape=list(images[0].shape), tile=TILE,
-            encode_ms=enc_ms, decode_ms=dec_ms,
-            encode_mpx_s=px / enc_ms / 1e3, decode_mpx_s=px / dec_ms / 1e3,
-            combined_mpx_s=2 * px / (enc_ms + dec_ms) / 1e3,
-            ratio=raw / sum(len(b) for b in blobs),
-            exact_round_trip=True, native_bytes_identical=True)
+    runs = [(name, images, TILE) for name, images in classes]
+    runs += [("gray8", classes[0][1], 64), ("gray8", classes[0][1], 256)]
+    for name, images, tile in runs:
+        blobs, row = flct_main_path(np, torch, dev, images, tile)
+        if tile == TILE:
+            blobs_by_class[name] = (images, blobs)
+        say("3 main path", nvidia_smi=card, cls=name, **row)
     launches = {"encode": tcd.ENCODE_LAUNCHES, "decode": tcd.DECODE_LAUNCHES}
     if not (launches["encode"] and launches["decode"]):
         fail(f"the main path did not launch both kernels: {launches}")
     # Launches in one batched call of each direction (the gray8 batch).
+    tc = TileConfig(TILE, TILE)
+    g8 = classes[0][1]
     tcd.ENCODE_LAUNCHES = tcd.DECODE_LAUNCHES = 0
     g8_blobs = compress_tiled_batch(g8, tc, device=dev)
     per_call = {"encode": tcd.ENCODE_LAUNCHES}
     decompress_tiled_batch(g8_blobs, device=dev)
     per_call["decode"] = tcd.DECODE_LAUNCHES
-    # Bounds at the kernels' gray8 shapes: the words a stream needs, the
-    # tiles and the per-tile priors.
-    used = int(((bits + 31) // 32).sum()) * 4
-    flct_bounds = {
-        "encode": bound(tiles.numel() * 4 + prior.numel() * 4 + used + nt * 8,
-                        OPS_PER_STEP * tiles.numel()),
-        "decode": bound(used + prior.numel() * 4 + tiles.numel() * 4,
-                        OPS_PER_STEP * tiles.numel()),
-    }
 
     # ---- phase 4: corrupt payloads --------------------------------------
     rng = np.random.default_rng(1)
@@ -635,15 +765,29 @@ def main() -> None:
                 "launches_per_call": per_call, **extra}
 
     flct_shape = f"gray8 12x512^2, tile {TILE}"
+    g8k = kt["gray8"]
+
+    def flct_by_class(key):
+        return {cls: row[key] for cls, row in kt.items() if key in row}
+
     by_class = {key: {cls: full[cls][key] for cls in full}
                 for key in ("kscan_ms", "decode_ms")}
     kernels = [
         entry("flct_encode", "felics_tpu/ops/pallas_codec.py:270", launches["encode"],
-              per_call["encode"], errs["encode"], timing["encode"][0],
-              timing["encode"][1], flct_bounds["encode"], shape=flct_shape),
+              per_call["encode"], errs["encode"], g8k["encode_ms"],
+              g8k["encode_plain_ms"], g8k["encode_bound"], shape=flct_shape,
+              full_shape_ms_by_class=flct_by_class("encode_ms"),
+              kernel_only_ms_by_class=flct_by_class("encode_kernel_ms"),
+              plain_ms_by_class=flct_by_class("encode_plain_ms"),
+              bound_ms_by_class={c: r["encode_bound"][0] for c, r in kt.items()}),
         entry("flct_decode", "felics_tpu/ops/pallas_codec.py:805", launches["decode"],
-              per_call["decode"], errs["decode"], timing["decode"][0],
-              timing["decode"][1], flct_bounds["decode"], shape=flct_shape),
+              per_call["decode"], errs["decode"], g8k["decode_ms"],
+              g8k["decode_plain_ms"], g8k["decode_bound"], shape=flct_shape,
+              full_shape_ms_by_class=flct_by_class("decode_ms"),
+              us_per_step_by_class=flct_by_class("decode_us_per_step"),
+              kernel_only_ms_by_class=flct_by_class("decode_kernel_ms"),
+              plain_ms_by_class=flct_by_class("decode_plain_ms"),
+              bound_ms_by_class={c: r["decode_bound"][0] for c, r in kt.items()}),
         entry("flcs_kscan", "felics_tpu/ops/kscan.py:108", flcs_launches["kscan"],
               flcs_per_call["kscan"], flcs_errs["kscan"], full["gray8"]["kscan_ms"],
               full["gray8"]["kscan_plain_ms"], full["gray8"]["kscan_bound"],
@@ -769,8 +913,31 @@ def stages() -> None:
                           "idle_share": 1 - busy / wall_us}), flush=True)
 
 
+def flct_only() -> None:
+    """FLCT alone, to compare two trees in one call: K1 and K2 timed at each
+    class's batch shape (tile 32) and on gray8 at tile 64, then each class
+    through the batched pair (checked against the native codec). One JSON
+    line each. Copy this file into the other tree's root to time that tree."""
+    np, torch = need_gpu_and_repo()
+    dev = torch.device("cuda")
+    card = smi()
+    subprocess.run([sys.executable, os.path.join(REPO, "native", "build.py")],
+                   check=True, capture_output=True)
+    classes = flct_classes(np)
+    cases = [(name, images, TILE) for name, images in classes]
+    cases.append(("gray8", classes[0][1], 64))
+    for name, images, tile in cases:
+        row = flct_kernel_times(torch, flct_kernel_inputs(torch, dev, images, tile))
+        print(json.dumps({"nvidia_smi": card, "cls": name, "kernels": row}), flush=True)
+    for name, images, tile in cases:
+        _, row = flct_main_path(np, torch, dev, images, tile)
+        print(json.dumps({"nvidia_smi": card, "cls": name, "main_path": row}), flush=True)
+
+
 if __name__ == "__main__":
     if sys.argv[1:] == ["--stages"]:
         stages()
+    elif sys.argv[1:] == ["--flct"]:
+        flct_only()
     else:
         main()

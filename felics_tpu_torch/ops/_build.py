@@ -27,6 +27,9 @@ BUILD_DIR = PKG_DIR / "_build"
 SOURCES = ("flct_encode.cu", "flct_decode.cu", "flcs_kscan.cu", "flcs_decode.cu")
 HEADERS = ("flct_common.cuh", "flcs_common.cuh")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+# The k counts the kernels are compiled for: the shipped 8-bit and 16-bit
+# configs.
+KERNEL_K = (6, 15)
 NVCC_FLAGS = (
     *ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-Xptxas=-v",  # per-kernel registers, local memory and spills
@@ -121,7 +124,8 @@ def library() -> ctypes.CDLL:
         ]
         lib.flct_decode.restype = i32
         lib.flct_decode.argtypes = [
-            vp, vp, i64, vp, i32, i32, i32, i32, i32, i32, i32, i32, i64, vp,
+            vp, vp, i64, vp, i32, i32, i32, i32, i32, i32, i32, i32, i64, i32,
+            i32, vp, vp,
         ]
         lib.flcs_kscan.restype = i32
         lib.flcs_kscan.argtypes = [vp, vp, vp, vp, i32, i64, i32, i32, vp]
@@ -136,6 +140,11 @@ def library() -> ctypes.CDLL:
         lib.flct_error_string.argtypes = [i32]
         _lib = lib
     return _lib
+
+
+def check_kernel_k(K: int) -> None:
+    if K not in KERNEL_K:
+        raise ValueError(f"the CUDA kernels take K in {KERNEL_K}; got {K}")
 
 
 def check(code: int, what: str) -> None:

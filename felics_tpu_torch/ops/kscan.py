@@ -37,9 +37,6 @@ LAUNCHES = 0
 
 _BIG = 0x7FFFFFFF
 _MAX_K = 15
-# The k counts the CUDA kernels are compiled for: the shipped 8-bit and
-# 16-bit configs.
-KERNEL_K = (6, 15)
 
 
 class SortedUpdates(NamedTuple):
@@ -119,11 +116,6 @@ def check_cfg(cfg: CodingConfig) -> int:
     return K
 
 
-def check_kernel_k(K: int) -> None:
-    if K not in KERNEL_K:
-        raise ValueError(f"the CUDA FLCS kernels take K in {KERNEL_K}; got {K}")
-
-
 def kscan(
     residual: torch.Tensor, su: SortedUpdates, cfg: CodingConfig
 ) -> torch.Tensor:
@@ -138,7 +130,7 @@ def kscan(
         return kscan_ref(residual, su, cfg)
     if residual.device.type != "cuda":
         raise ValueError(f"unsupported device {residual.device}")
-    check_kernel_k(K)
+    _build.check_kernel_k(K)
     dev = residual.device
     # The kernel reads each segment as a contiguous run and writes k in
     # sorted order; slots that are not out of range keep the largest k.

@@ -36,6 +36,8 @@ from felics_tpu_torch.ops.bits import (
 ENCODE_LAUNCHES = 0
 DECODE_LAUNCHES = 0
 
+DECODE_MIN_BLOCKS = 384  # flct_decode.cu: blocks to aim for (~3 per SM of an H100)
+
 _I32_MIN, _I32_MAX = -(1 << 31), (1 << 31) - 1
 _SPILL = 16  # word-count alignment of encode_width_bound (reference format)
 
@@ -235,6 +237,41 @@ def encode_tiles_ref(
     return wr.finish()
 
 
+def tile_k_ref(
+    tiles: torch.Tensor, cfg: CodingConfig, th: int, tw: int, prior: torch.Tensor,
+) -> torch.Tensor:
+    """(n, C, t) k of every pixel, as the encode kernel finds it: the
+    k-table just before pixel i is the prior plus the exclusive prefix sum
+    (uint32, wrapping) of the Rice-length rows (v >> k) + 1 + k of the
+    earlier out-of-range pixels of its bucket; k is the row's last minimum.
+    Pixels that are not out of range get the largest k (as
+    felics_tpu/ops/kscan_tiled.py::kscan_tiled does)."""
+    n, c, t = tiles.shape
+    nb, K = _check_geometry(th, tw, c, cfg)
+    dev = tiles.device
+    _check_prior(prior, n, c, nb, K, dev)
+    pr = _per_tile_prior(prior, n, c, nb, K) & MASK32  # (n, C, nb, K)
+    a_idx, b_idx = (torch.from_numpy(i.astype(np.int64)).to(dev)
+                    for i in neighbour_indices(th, tw))
+    x = tiles.to(torch.int64)
+    va, vb = x[..., a_idx], x[..., b_idx]
+    h, l = torch.maximum(va, vb), torch.minimum(va, vb)
+    coded = torch.arange(t, device=dev) >= 2
+    below = (x < l) & coded
+    oor = below | ((x > h) & coded)
+    v = torch.where(below, l - x - 1, x - h - 1)
+    qc = bit_length(h - l, nb - 1)  # min(bit_length(ctx), nb - 1)
+    ks = torch.arange(K, dtype=torch.int64, device=dev)
+    rows = (v.unsqueeze(-1) >> ks) + 1 + ks  # (n, C, t, K)
+    k = torch.full((n, c, t), K - 1, dtype=torch.int64, device=dev)
+    for b in range(nb):
+        mask = (qc == b) & oor
+        contrib = torch.where(mask.unsqueeze(-1), rows, 0)
+        table = (torch.cumsum(contrib, dim=2) - contrib + pr[:, :, b, None, :]) & MASK32
+        k = torch.where(mask, k_select(table, ks), k)
+    return k
+
+
 def encode_tiles(
     tiles: torch.Tensor, cfg: CodingConfig, th: int, tw: int, W: int,
     prior: torch.Tensor,
@@ -255,6 +292,7 @@ def encode_tiles(
         return encode_tiles_ref(tiles, cfg, th, tw, W, prior)
     if tiles.device.type != "cuda":
         raise ValueError(f"unsupported device {tiles.device}")
+    _build.check_kernel_k(K)
     prior, stride = _check_prior(prior, n, c, nb, K, tiles.device)
     tiles = tiles.contiguous()
     words = torch.zeros((n, W), dtype=torch.int32, device=tiles.device)
@@ -366,6 +404,29 @@ def decode_tiles_ref(
     return out.to(torch.int32)
 
 
+def decode_tiles_per_block(n: int) -> int:
+    """Tiles (threads) of one flct_decode.cu block: 32 (a full warp) while
+    that still gives DECODE_MIN_BLOCKS blocks, else halved until it does.
+    A tile is one serial chain, and a warp issues its step's instructions
+    once for all its tiles: more tiles a warp cost fewer instructions in
+    all, more warps an SM hide more latency. On an H100 the best of 1-32
+    tiles a block was 8 for gray8 (3072 tiles at tile 32), 4 for rgb8
+    (2048), 2 for gray16 (1024) and for gray8 at tile 64 (768): ~384
+    blocks each time."""
+    tpb = 32
+    while tpb > 1 and -(-n // tpb) < DECODE_MIN_BLOCKS:
+        tpb //= 2
+    return tpb
+
+
+def decode_smem_bytes(K: int, tw: int, tpb: int) -> int:
+    """Shared memory of one flct_decode.cu block of ``tpb`` tiles with its
+    rings shared: the k-table (6 x K entries a tile) and the rings of the
+    row above (tw + 1 entries a tile, at a stride of tpb + 1). Rings that
+    do not fit go to global scratch."""
+    return 4 * (6 * K * tpb + (tw + 1) * (tpb + 1))
+
+
 def decode_tiles(
     words: torch.Tensor, cfg: CodingConfig, th: int, tw: int, c: int,
     prior: torch.Tensor,
@@ -381,6 +442,9 @@ def decode_tiles(
         return decode_tiles_ref(words, cfg, th, tw, c, prior)
     if words.device.type != "cuda":
         raise ValueError(f"unsupported device {words.device}")
+    _build.check_kernel_k(K)
+    if 32 * W + 20 * c * th * tw + 64 > _I32_MAX:
+        raise ValueError(f"word rows of {W} words are too long for the decode kernel")
     prior, stride = _check_prior(prior, n, c, nb, K, words.device)
     words = words.contiguous()
     out = torch.empty((n, c, th * tw), dtype=torch.int32, device=words.device)
@@ -388,9 +452,14 @@ def decode_tiles(
         return out
     lib = _build.library()
     with torch.cuda.device(words.device):
+        tpb = decode_tiles_per_block(n)
+        ring_shared = decode_smem_bytes(K, tw, tpb) <= lib.flcs_decode_smem_limit()
+        rings = None if ring_shared else torch.empty(
+            (-(-n // tpb), (tw + 1) * (tpb + 1)), dtype=torch.int32, device=words.device)
         code = lib.flct_decode(
             words.data_ptr(), prior.data_ptr(), stride, out.data_ptr(), n, c,
             th, tw, cfg.depth_bits, nb, K, int(cfg.max_context), W,
+            tpb, int(ring_shared), None if rings is None else rings.data_ptr(),
             torch.cuda.current_stream().cuda_stream,
         )
     _build.check(code, "flct_decode")

@@ -99,6 +99,69 @@ def test_tile_codec_matches_pallas(shape, depth_max, tile, smooth, prior_kind):
     assert np.array_equal(dec_t, tiles)
 
 
+def _serial_k(tiles, prior, th, tw, nb, K):
+    """k of every out-of-range pixel from a serial walk of each domain's
+    table, pixel by pixel, in Python ints (uint32 wrap); the largest k
+    elsewhere."""
+    nt, c, t = tiles.shape
+    out = np.full((nt, c, t), K - 1, np.int64)
+    x = np.arange(t) % tw
+    y = np.arange(t) // tw
+    for i in range(nt):
+        for ci in range(c):
+            plane = [int(v) for v in tiles[i, ci]]
+            table = [[int(v) & 0xFFFFFFFF for v in row] for row in prior[i, ci]]
+            for j in range(2, t):
+                if y[j] == 0:
+                    a, b = j - 1, j - 2
+                elif x[j] > 0:
+                    a, b = j - 1, j - tw
+                elif y[j] >= 2:
+                    a, b = j - tw, j - 2 * tw
+                else:
+                    a, b = j - tw, j - tw + 1
+                p, h, lo = plane[j], max(plane[a], plane[b]), min(plane[a], plane[b])
+                if lo <= p <= h:
+                    continue
+                v = lo - p - 1 if p < lo else p - h - 1
+                row = table[min((h - lo).bit_length(), nb - 1)]
+                best = min(row)
+                out[i, ci, j] = max(k for k in range(K) if row[k] == best)
+                for k in range(K):
+                    row[k] = (row[k] + (v >> k) + 1 + k) & 0xFFFFFFFF
+    return out
+
+
+@pytest.mark.parametrize("prior_kind", ["zero", "per-tile"])
+@pytest.mark.parametrize("shape,depth_max,tile,smooth", [
+    ((24, 24), 255, (8, 8), True),
+    ((8, 8, 3), 65535, (4, 4), False),
+    ((13, 9), 255, (5, 3), False),
+    ((16, 16, 3), 255, (8, 8), False),
+])
+def test_prefix_sum_k_matches_kscan_tiled(shape, depth_max, tile, smooth, prior_kind):
+    """The encode kernel's k pass (prefix sums of Rice-length rows, written
+    out plainly as tile_k_ref) equals the reference's scan-free kscan_tiled
+    on _tiled_stage1's analysis, and a serial walk of the table."""
+    from felics_tpu.ops.kscan_tiled import kscan_tiled
+
+    tiles, prior, cfg = _tiles_and_prior(shape, depth_max, tile, smooth, prior_kind)
+    th, tw = tile
+    nt, c, t = tiles.shape
+    nb, K = tcd.num_buckets(cfg), cfg.num_k
+    per_tile = np.ascontiguousarray(np.broadcast_to(prior, (nt, c, nb, K)), np.int32)
+    _, _, oor, residual, _, _, qctx = ref_tiling._tiled_stage1(tiles, th, tw, nb)
+    want = np.asarray(kscan_tiled(
+        qctx.reshape(nt * c, t), oor.reshape(nt * c, t), residual.reshape(nt * c, t),
+        cfg, nb, per_tile.reshape(nt * c, nb, K),
+    )).reshape(nt, c, t)
+    got = tcd.tile_k_ref(torch.from_numpy(tiles), cfg, th, tw,
+                         prior_from_reference(prior, nt, CPU)).numpy()
+    assert np.array_equal(got, want)
+    assert np.array_equal(got, _serial_k(tiles, per_tile, th, tw, nb, K))
+    assert np.asarray(oor).any()  # the cases do exercise the table
+
+
 @pytest.mark.parametrize("prior_kind", ["zero", "image"])
 def test_shared_and_per_tile_prior_agree(prior_kind):
     """A (C, nb, K) prior and its per-tile broadcast give the same stream."""

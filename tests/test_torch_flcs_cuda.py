@@ -21,7 +21,7 @@ from felics_tpu_torch import api
 from felics_tpu_torch.config import config_for_depth
 from felics_tpu_torch.core import codec
 from felics_tpu_torch.format import header_for_array
-from felics_tpu_torch.ops import analysis, kscan
+from felics_tpu_torch.ops import _build, analysis, kscan
 
 CPU = torch.device("cpu")
 torch.set_num_threads(1)
@@ -205,7 +205,7 @@ def test_kernels_take_the_shipped_k_counts(K, ok):
     """The CUDA kernels are compiled for K = 6 (8-bit) and K = 15 (16-bit)
     only; any other K raises before a launch."""
     if ok:
-        kscan.check_kernel_k(K)
+        _build.check_kernel_k(K)
     else:
         with pytest.raises(ValueError, match="K in"):
-            kscan.check_kernel_k(K)
+            _build.check_kernel_k(K)

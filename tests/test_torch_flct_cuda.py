@@ -1,0 +1,198 @@
+"""The FLCT tile kernels K1 (felics_tpu_torch/csrc/flct_encode.cu) and K2
+(felics_tpu_torch/csrc/flct_decode.cu) against their plain versions
+(ops/tile_codec.py: encode_tiles_ref, decode_tiles_ref), and the plain
+versions' own round trips.
+
+This module imports no JAX and nothing of felics_tpu, so it runs on a card
+as well as here: inputs are made with numpy from a seed and tiled by the
+port itself. The kernel cases carry the ``cuda`` marker and skip where
+torch.cuda.is_available() is False; the plain-version cases run on the CPU.
+Tolerance zero: words, bit counts and planes are integers. On a host
+without JAX, skip tests/conftest.py (it sets JAX up):
+
+    python3 -m pytest --noconftest tests/test_torch_flct_cuda.py -q
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from felics_tpu_torch.config import TileConfig, tiled_config_for_depth
+from felics_tpu_torch.device import upload_image
+from felics_tpu_torch.format import PixelDepth, header_for_array
+from felics_tpu_torch.ops import tile_codec as tcd
+from felics_tpu_torch.parallel import flct, tiling
+
+CPU = torch.device("cpu")
+torch.set_num_threads(1)
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the FLCT kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+def _image(seed, shape, dtype, smooth):
+    rng = np.random.default_rng(seed)
+    hi = np.iinfo(dtype).max
+    if smooth:
+        img = np.cumsum(np.cumsum(rng.integers(-6, 7, shape), 0), 1) + hi // 2
+        return np.clip(img, 0, hi).astype(dtype)
+    return rng.integers(0, hi + 1, shape).astype(dtype)
+
+
+# name, image, tile, prior ("image": the container's k-prior; "zero")
+CASES = [
+    ("gray8 zero prior", _image(1, (24, 24), np.uint8, True), (8, 8), "zero"),
+    ("gray8 prior", _image(2, (24, 24), np.uint8, True), (8, 8), "image"),
+    ("rgb8", _image(3, (16, 16, 3), np.uint8, True), (8, 8), "image"),
+    ("rgb16", _image(4, (8, 8, 3), np.uint16, False), (4, 4), "image"),
+    ("gray16", _image(5, (16, 24), np.uint16, True), (8, 8), "image"),
+    ("gray8 13x9 tile 5x3", _image(6, (13, 9), np.uint8, False), (5, 3), "image"),
+    ("gray8 tile 64x64", _image(7, (64, 64), np.uint8, True), (64, 64), "image"),
+]
+IDS = [c[0] for c in CASES]
+
+
+def _inputs(img, tile, prior_kind, device):
+    """(tiles, prior, cfg, th, tw) of one image, tiled as the main path
+    tiles it."""
+    hd = header_for_array(img)
+    cfg = tiled_config_for_depth(hd.pixel_depth)
+    th, tw = flct.clamped_tile_dims(hd.height, hd.width, TileConfig(*tile))
+    tiles = tiling.image_tiles(upload_image(img, device)[None], th, tw)
+    nt, c, _ = tiles.shape
+    if prior_kind == "image":
+        _, prior = tiling.k0_prior(tiles, [nt], th, tw, cfg)
+    else:
+        prior = torch.zeros((c, tcd.num_buckets(cfg), cfg.num_k), dtype=torch.int32,
+                            device=device)
+    return tiles, prior, cfg, th, tw
+
+
+def _overflow_inputs(device):
+    """Noise on a checkerboard under a prior that holds every bucket at
+    k = 0: ~230 bits a pixel, far past a narrow W."""
+    rng = np.random.default_rng(8)
+    checker = (np.arange(16)[:, None] + np.arange(16)[None, :]) % 2 == 1
+    img = np.where(checker, rng.integers(240, 256, (16, 16)),
+                   rng.integers(0, 16, (16, 16))).astype(np.uint8)
+    cfg = tiled_config_for_depth(PixelDepth.EIGHT)
+    tiles = tiling.image_tiles(upload_image(img, device)[None], 8, 8)
+    prior = torch.full((1, tcd.num_buckets(cfg), cfg.num_k), 1 << 20, dtype=torch.int32,
+                       device=device)
+    prior[..., 0] = 0
+    return tiles, prior, cfg
+
+
+def _garbage_rows(device):
+    """Random words, and all ones (an endless unary run)."""
+    rng = np.random.default_rng(9)
+    rows = rng.integers(-(1 << 31), 1 << 31, (40, 8)).astype(np.int32)
+    rows[1] = -1
+    return torch.from_numpy(rows).to(device)
+
+
+GARBAGE = [(PixelDepth.EIGHT, 1), (PixelDepth.SIXTEEN, 3)]
+
+
+@pytest.mark.parametrize("name,img,tile,prior_kind", CASES, ids=IDS)
+def test_plain_versions_round_trip(name, img, tile, prior_kind):
+    tiles, prior, cfg, th, tw = _inputs(img, tile, prior_kind, CPU)
+    nt, c, t = tiles.shape
+    W = tcd.encode_width_bound(cfg, t, c)
+    words, bits = tcd.encode_tiles_ref(tiles, cfg, th, tw, W, prior)
+    assert int(bits.max()) <= 32 * W
+    assert torch.equal(tcd.decode_tiles_ref(words, cfg, th, tw, c, prior), tiles)
+
+
+def test_plain_encode_overflowing_width_keeps_exact_bits():
+    tiles, prior, cfg = _overflow_inputs(CPU)
+    full_w, full_b = tcd.encode_tiles_ref(tiles, cfg, 8, 8, 1024, prior)
+    assert int(full_b.max()) > 32 * 64
+    short_w, short_b = tcd.encode_tiles_ref(tiles, cfg, 8, 8, 64, prior)
+    assert torch.equal(short_b, full_b)
+    assert torch.equal(short_w, full_w[:, :64])
+
+
+@pytest.mark.parametrize("depth,c", GARBAGE, ids=[f"{d.name} C={c}" for d, c in GARBAGE])
+def test_plain_decode_of_garbage_words_terminates(depth, c):
+    cfg = tiled_config_for_depth(depth)
+    prior = torch.zeros((c, tcd.num_buckets(cfg), cfg.num_k), dtype=torch.int32)
+    out = tcd.decode_tiles_ref(_garbage_rows(CPU), cfg, 4, 4, c, prior)
+    assert out.shape == (40, c, 16) and out.dtype == torch.int32
+
+
+@pytest.mark.parametrize("n,tpb", [(1, 1), (48, 1), (768, 2), (1024, 2), (2048, 4),
+                                   (3072, 8), (12288, 32), (100000, 32)])
+def test_decode_tiles_per_block(n, tpb):
+    """K2 puts fewer tiles in a block while that gives more blocks, up to
+    DECODE_MIN_BLOCKS; a full warp of tiles once there are enough."""
+    assert tcd.decode_tiles_per_block(n) == tpb
+
+
+@pytest.mark.parametrize("K,tw,tpb,shared", [
+    (6, 32, 32, True), (6, 256, 32, True), (15, 256, 32, True), (6, 1700, 32, True),
+    (15, 1700, 32, False), (6, 1800, 32, False), (6, 29000, 1, True), (6, 30000, 1, False),
+])
+def test_decode_ring_fits_shared_memory(K, tw, tpb, shared):
+    """K2 keeps its rings of the row above in shared memory beside the
+    k-table up to the opt-in limit (227 KB on an H100); wider tiles put
+    them in global scratch."""
+    assert (tcd.decode_smem_bytes(K, tw, tpb) <= 232448) == shared
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,img,tile,prior_kind", CASES, ids=IDS)
+def test_cuda_kernels_match_plain_versions(cuda, name, img, tile, prior_kind):
+    tiles, prior, cfg, th, tw = _inputs(img, tile, prior_kind, cuda)
+    nt, c, t = tiles.shape
+    W = tcd.encode_width_bound(cfg, t, c)
+    wk, bk = tcd.encode_tiles(tiles, cfg, th, tw, W, prior)
+    wr, br = tcd.encode_tiles_ref(tiles, cfg, th, tw, W, prior)
+    assert torch.equal(wk, wr) and torch.equal(bk, br)
+    dk = tcd.decode_tiles(wk, cfg, th, tw, c, prior)
+    assert torch.equal(dk, tcd.decode_tiles_ref(wk, cfg, th, tw, c, prior))
+    assert torch.equal(dk, tiles)
+
+
+@pytest.mark.cuda
+def test_cuda_encode_overflowing_width(cuda):
+    """Words past W are dropped and the bit count stays exact, as in the
+    plain version; the words that fit are the head of the full stream."""
+    tiles, prior, cfg = _overflow_inputs(cuda)
+    short_w, short_b = tcd.encode_tiles(tiles, cfg, 8, 8, 64, prior)
+    ref_w, ref_b = tcd.encode_tiles_ref(tiles, cfg, 8, 8, 64, prior)
+    assert int(short_b.max()) > 32 * 64
+    assert torch.equal(short_w, ref_w) and torch.equal(short_b, ref_b)
+    full_w, full_b = tcd.encode_tiles(tiles, cfg, 8, 8, 1024, prior)
+    assert torch.equal(full_b, short_b) and torch.equal(full_w[:, :64], short_w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("depth,c", GARBAGE, ids=[f"{d.name} C={c}" for d, c in GARBAGE])
+def test_cuda_decode_of_garbage_words(cuda, depth, c):
+    cfg = tiled_config_for_depth(depth)
+    prior = torch.zeros((c, tcd.num_buckets(cfg), cfg.num_k), dtype=torch.int32,
+                        device=cuda)
+    rows = _garbage_rows(cuda)
+    got = tcd.decode_tiles(rows, cfg, 4, 4, c, prior)
+    assert torch.equal(got, tcd.decode_tiles_ref(rows, cfg, 4, 4, c, prior))
+
+
+@pytest.mark.cuda
+def test_cuda_decode_ring_in_global_scratch(cuda):
+    """A tile 30,000 pixels wide: K2's ring does not fit in shared memory
+    and goes to global scratch; the round trip is still exact (the plain
+    versions, at 60,000 steps, are left out)."""
+    img = _image(10, (2, 30000), np.uint8, True)
+    tiles, prior, cfg, th, tw = _inputs(img, (2, 30000), "image", cuda)
+    nt, c, t = tiles.shape
+    tpb = tcd.decode_tiles_per_block(nt)
+    assert not tcd.decode_smem_bytes(cfg.num_k, tw, tpb) <= 232448
+    W = tcd.encode_width_bound(cfg, t, c)
+    words, bits = tcd.encode_tiles(tiles, cfg, th, tw, W, prior)
+    assert int(bits.max()) <= 32 * W
+    assert torch.equal(tcd.decode_tiles(words, cfg, th, tw, c, prior), tiles)
