@@ -4,6 +4,7 @@
     python3 chip_smoke.py            # the smoke run below
     python3 chip_smoke.py --stages   # FLCS stage breakdown and idle share
     python3 chip_smoke.py --flct     # FLCT kernels and main path alone
+    python3 chip_smoke.py --stream   # FLCT stream vs one-shot, profiled
 
 Phases, one line each, any failure exits non-zero and prints no result:
 
@@ -13,8 +14,10 @@ Phases, one line each, any failure exits non-zero and prints no result:
 2. both FLCT kernels (K1, K2) against their plain PyTorch versions on the
    card, exact to the word, the bit count and the pixel, on small cases
    (gray8 with zero and real priors, rgb8, rgb16, gray16, odd 13x9 at tile
-   5x3, 45x50 at tile 40x24), on one noise case that makes the encoder
-   relaunch at a wider width, and K2 on garbage words;
+   5x3, 45x50 at tile 40x24), on noise under a k = 0 prior, on the
+   relaunch encode_finish makes when a stream outgrows the width hint
+   (against a direct launch at that width and the native codec), and K2
+   on garbage words;
 3. the main path at full size: 12x512^2 gray8, 8x512^2x3 rgb8 and 4x512^2
    gray16 (bench.py's synthetic recipe, seed 0): K1 and K2 against their
    plain versions at each batch's shapes (tile 32) and timed there and on
@@ -43,7 +46,23 @@ Phases, one line each, any failure exits non-zero and prints no result:
    byte-identical to the native C++ codec, native containers decoding
    exactly, exact round trips, batched bytes equal to the per-image call,
    one FLCT image routed through the API, K3 and K4 launched (counters),
-   times from CUDA events beside the native codec on one host core.
+   times from CUDA events beside the native codec on one host core;
+7. the FLCT stream pair at full size: phase 3's batches in bench.py's
+   stream_bench chunks (gray8 in chunks of 3, rgb8 and gray16 in chunks
+   of 2; tile 32, depth 2) through compress_tiled_stream /
+   decompress_tiled_stream: containers byte-identical to
+   compress_tiled_batch and to the native codec, exact round trips, K1
+   and K2 launched (counters, read right after each stream call); Mpx/s
+   (best of 5 warm runs, CUDA events) of the stream at depth 2 and 1, of
+   the same chunks through back-to-back batched calls, and of the whole
+   class in one batched call, beside the native codec on one host core;
+   then
+   on_error="isolate" in the batch and the stream call on batches with a
+   truncated member, a zeroed tile-width field and flipped payload bytes;
+   then the long row: one 4096x4096 tile of uniform gray16 noise, whose
+   stream passes 2^31 bits, encoded on the card, byte-identical to the
+   native codec, decoded exactly through K2's 64-bit-position
+   instantiation (its own counter).
 
 No module of JAX or of the JAX package felics_tpu is imported; the native
 codec is reached through felics_tpu_torch.native (native/build.py builds
@@ -66,6 +85,14 @@ import time
 REPO = os.path.dirname(os.path.abspath(__file__))
 TILE = 32
 CORRUPT_SECONDS = 60.0  # limit for one corrupt-container decode
+# Phase 7: bench.py's stream_bench chunking and depth, and the side of the
+# long-row tile. Uniform gray16 noise in one tile costs more bits a pixel
+# the longer the tile (the k-table's uint32 sums wrap, in the format and in
+# the native codec alike): ~259 bits a pixel at 4096x4096, a stream of
+# ~4.3e9 bits, twice 2^31.
+STREAM_CHUNKS = {"gray8": 3, "rgb8": 2, "gray16": 2}
+STREAM_DEPTH = 2
+LONG_SIDE = 4096
 # H100 SXM peaks (NVIDIA's data sheet, at a 700 W limit): HBM3 bytes a
 # second, and float32 operations a second outside the tensor cores, the
 # nearest entry to the kernels' 32-bit integer operations.
@@ -155,20 +182,16 @@ def flct_classes(np):
 
 def flct_kernel_inputs(torch, dev, images, tile):
     """K1's and K2's inputs at one batch's shape, as the main path makes
-    them: tiles, per-tile prior, and the words and bits encode_words gives."""
-    from felics_tpu_torch.config import tiled_config_for_depth
-    from felics_tpu_torch.device import upload_image
+    them: tiles, per-tile prior, and the words and bits the encode chain
+    packs its containers from (encode_dispatch, then encode_finish)."""
     from felics_tpu_torch.format import header_for_array
     from felics_tpu_torch.parallel import tiling
 
-    cfg = tiled_config_for_depth(header_for_array(images[0]).pixel_depth)
-    tiles = torch.cat([tiling.image_tiles(upload_image(im, dev)[None], tile, tile)
-                       for im in images])
-    per_image = tiles.shape[0] // len(images)
-    _, prior = tiling.k0_prior(tiles, [per_image] * len(images), tile, tile, cfg)
-    words, bits = tiling.encode_words(tiles, prior, cfg, tile, tile)
-    return {"tiles": tiles, "prior": prior, "cfg": cfg, "tile": tile,
-            "words": words, "bits": bits}
+    headers = [header_for_array(im) for im in images]
+    p = tiling.encode_dispatch(images, headers, tile, tile, True, dev)
+    tiling.encode_finish(p)
+    return {"tiles": p.tiles, "prior": p.prior, "cfg": p.cfg, "tile": tile,
+            "words": p.words, "bits": p.bits}
 
 
 def flct_kernel_times(torch, ks, reps: int = 10) -> dict:
@@ -201,20 +224,20 @@ def flct_kernel_times(torch, ks, reps: int = 10) -> dict:
             "decode_bound": bound(used + prior.numel() * 4 + tiles.numel() * 4, ops)}
 
 
-def flct_main_path(np, torch, dev, images, tile, reps: int = 3):
+def flct_main_path(np, torch, dev, images, tile, reps: int = 5):
     """One batch through compress_tiled_batch / decompress_tiled_batch on the
     card: exact round trips and containers byte-identical to the native C++
-    codec, or fail; ms from CUDA events (mean of `reps` calls after a warm
-    one). Returns the containers and a row of numbers."""
+    codec, or fail; ms from CUDA events (mean and best of `reps` calls after
+    a warm one). Returns the containers and a row of numbers."""
     from felics_tpu_torch import compress_tiled_batch, decompress_tiled_batch, native
     from felics_tpu_torch.config import TileConfig
     from felics_tpu_torch.format import header_for_array
 
     tc = TileConfig(tile, tile)
     blobs = compress_tiled_batch(images, tc, device=dev)  # warm
-    decompress_tiled_batch(blobs, device=dev)
-    enc_ms = cuda_ms(torch, lambda: compress_tiled_batch(images, tc, device=dev), reps)
-    dec_ms = cuda_ms(torch, lambda: decompress_tiled_batch(blobs, device=dev), reps)
+    enc = call_ms(torch, lambda: compress_tiled_batch(images, tc, device=dev), reps)
+    dec = call_ms(torch, lambda: decompress_tiled_batch(blobs, device=dev), reps)
+    (enc_ms, enc_best), (dec_ms, dec_best) = enc, dec
     outs = decompress_tiled_batch(blobs, device=dev)
     for i, (im, out) in enumerate(zip(images, outs)):
         if out.dtype != im.dtype or not np.array_equal(out, im):
@@ -229,9 +252,240 @@ def flct_main_path(np, torch, dev, images, tile, reps: int = 3):
         "encode_ms": enc_ms, "decode_ms": dec_ms,
         "encode_mpx_s": px / enc_ms / 1e3, "decode_mpx_s": px / dec_ms / 1e3,
         "combined_mpx_s": 2 * px / (enc_ms + dec_ms) / 1e3,
+        "encode_best_ms": enc_best, "decode_best_ms": dec_best,
+        "combined_best_mpx_s": 2 * px / (enc_best + dec_best) / 1e3,
         "ratio": raw / sum(len(b) for b in blobs),
         "exact_round_trip": True, "native_bytes_identical": True,
     }
+
+
+def call_ms(torch, fn, reps: int):
+    """(mean, best) ms of `reps` calls of fn() after a warm one, each
+    between two CUDA events on the current stream. The FLCT calls return
+    with their results on the host, whatever streams they ran on, so this
+    is the call's whole time."""
+    fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return sum(times) / reps, min(times)
+
+
+def stream_calls(tc, dev, images, chunks, blobs, streamed) -> dict:
+    """Phase 7's timed calls of one class, each way; each returns with its
+    results on the host. The stream at STREAM_DEPTH and at depth 1 (same
+    machinery, nothing in flight to overlap), the same chunks through
+    back-to-back batched calls (no stream machinery), and the whole class
+    in one batched call."""
+    from felics_tpu_torch import (
+        compress_tiled_batch, compress_tiled_stream, decompress_tiled_batch,
+        decompress_tiled_stream,
+    )
+
+    return {
+        "stream_encode": lambda: compress_tiled_stream(
+            iter(chunks), tc, depth=STREAM_DEPTH, device=dev),
+        "stream_decode": lambda: decompress_tiled_stream(
+            iter(streamed), depth=STREAM_DEPTH, device=dev),
+        "stream_d1_encode": lambda: compress_tiled_stream(iter(chunks), tc, depth=1, device=dev),
+        "stream_d1_decode": lambda: decompress_tiled_stream(iter(streamed), depth=1, device=dev),
+        "batched_encode": lambda: [compress_tiled_batch(c, tc, device=dev) for c in chunks],
+        "batched_decode": lambda: [decompress_tiled_batch(b, device=dev) for b in streamed],
+        "one_shot_encode": lambda: compress_tiled_batch(images, tc, device=dev),
+        "one_shot_decode": lambda: decompress_tiled_batch(blobs, device=dev),
+    }
+
+
+def flct_stream(np, torch, dev, card, classes, blobs_by_class) -> dict:
+    """Phase 7, the stream pair: each class in bench.py's chunks through
+    compress_tiled_stream / decompress_tiled_stream on the card, checked
+    batch by batch against compress_tiled_batch, the native codec and the
+    images, then timed beside its controls (the stream at depth 1, the same
+    chunks through back-to-back batched calls, the whole class in one
+    batched call) and the native codec on one host core. Returns the
+    kernel launches of the stream calls alone: each counter is set to 0
+    just before its direction's stream calls and read just after them."""
+    from felics_tpu_torch import (
+        compress_tiled_batch, compress_tiled_stream, decompress_tiled_stream, native,
+    )
+    from felics_tpu_torch.config import TileConfig
+    from felics_tpu_torch.format import header_for_array
+    from felics_tpu_torch.ops import tile_codec as tcd
+
+    tc = TileConfig(TILE, TILE)
+    chunked = {name: [images[i : i + STREAM_CHUNKS[name]]
+                      for i in range(0, len(images), STREAM_CHUNKS[name])]
+               for name, images in classes}
+    tcd.ENCODE_LAUNCHES = 0
+    streamed = {name: compress_tiled_stream(iter(chunks), tc, depth=STREAM_DEPTH, device=dev)
+                for name, chunks in chunked.items()}
+    launches = {"encode": tcd.ENCODE_LAUNCHES}
+    tcd.DECODE_LAUNCHES = 0
+    restored = {name: decompress_tiled_stream(iter(streamed[name]), depth=STREAM_DEPTH,
+                                              device=dev)
+                for name in chunked}
+    launches["decode"] = tcd.DECODE_LAUNCHES
+    if not (launches["encode"] and launches["decode"]):
+        fail(f"the stream did not launch both kernels: {launches}")
+    for name, chunks in chunked.items():
+        for k, (chunk, got, back) in enumerate(zip(chunks, streamed[name], restored[name])):
+            if got != compress_tiled_batch(chunk, tc, device=dev):
+                fail(f"stream {name} batch {k}: bytes differ from compress_tiled_batch")
+            for im, blob, out in zip(chunk, got, back):
+                if blob != native.compress_tiled(im, header_for_array(im), TILE, TILE):
+                    fail(f"stream {name} batch {k}: a container differs from the native codec")
+                if out.dtype != im.dtype or not np.array_equal(out, im):
+                    fail(f"stream {name} batch {k}: round trip is not exact")
+        if [b for batch in streamed[name] for b in batch] != blobs_by_class[name][1]:
+            fail(f"stream {name}: containers differ from phase 3's batched call")
+
+    for name, images in classes:
+        chunks, blobs = chunked[name], blobs_by_class[name][1]
+        px = sum(im.shape[0] * im.shape[1] for im in images)
+        ms = {k: call_ms(torch, fn, 5)[1]
+              for k, fn in stream_calls(tc, dev, images, chunks, blobs, streamed[name]).items()}
+        t0 = time.perf_counter()
+        natives = [native.compress_tiled(im, header_for_array(im), TILE, TILE, 1)
+                   for im in images]
+        t1 = time.perf_counter()
+        native_outs = [native.decompress_tiled(b, 1) for b in natives]
+        t2 = time.perf_counter()
+        if any(not np.array_equal(o, im) for o, im in zip(native_outs, images)):
+            fail(f"stream {name}: the native FLCT decoder did not give the images back")
+        mpx = {k: px / v / 1e3 for k, v in ms.items()}
+        combined = {run: 2 * px / (ms[f"{run}_encode"] + ms[f"{run}_decode"]) / 1e3
+                    for run in ("stream", "stream_d1", "batched", "one_shot")}
+        say("7 stream", nvidia_smi=card, cls=name, images=len(images),
+            chunk=STREAM_CHUNKS[name], batches=len(chunks), depth=STREAM_DEPTH, tile=TILE,
+            **{f"{k}_ms": v for k, v in ms.items()},
+            **{f"{k}_mpx_s": v for k, v in mpx.items()},
+            **{f"{run}_mpx_s": v for run, v in combined.items()},
+            stream_over_one_shot=combined["stream"] / combined["one_shot"],
+            stream_over_batched=combined["stream"] / combined["batched"],
+            stream_over_depth1=combined["stream"] / combined["stream_d1"],
+            batched_over_one_shot=combined["batched"] / combined["one_shot"],
+            native_1core_encode_mpx_s=px / (t1 - t0) / 1e6,
+            native_1core_decode_mpx_s=px / (t2 - t1) / 1e6,
+            bytes_equal_batch=True, bytes_equal_native=True, exact_round_trip=True)
+    return launches
+
+
+def flct_isolate(np, dev, images, blobs) -> None:
+    """Phase 7, on_error="isolate": three gray8 batches, one with a
+    truncated member, one with a zeroed tile-width header field, one with
+    the first tile's stream bytes flipped, through decompress_tiled_batch
+    and decompress_tiled_stream. Good members must come back exact, bad
+    ones as DecompressionErrors; on_error="raise" must raise."""
+    from felics_tpu_torch import decompress_tiled_batch, decompress_tiled_stream, errors
+    from felics_tpu_torch.parallel import flct
+
+    hd = flct.read_tiled_header(blobs[7])
+    flipped = bytearray(blobs[7])
+    for i in range(hd.payload_off, hd.payload_off + int(hd.tile_lengths[0])):
+        flipped[i] ^= 0xFF
+    batches = [
+        ([blobs[0], blobs[1][:-5], blobs[2]], 1),
+        ([blobs[3][:14] + b"\x00\x00" + blobs[3][16:], blobs[4], blobs[5]], 0),
+        ([blobs[6], bytes(flipped), blobs[8]], 1),
+    ]
+    first = [0, 3, 6]
+    by_batch = [decompress_tiled_batch(b, device=dev, on_error="isolate") for b, _ in batches]
+    by_stream = decompress_tiled_stream(iter([b for b, _ in batches]), depth=STREAM_DEPTH,
+                                        on_error="isolate", device=dev)
+    seen = []
+    for (batch, bad), i0, outs_b, outs_s in zip(batches, first, by_batch, by_stream):
+        for j, (ob, os_) in enumerate(zip(outs_b, outs_s)):
+            if j == bad:
+                if not (isinstance(ob, errors.DecompressionError)
+                        and type(ob) is type(os_)):
+                    fail(f"isolate: bad member {i0 + j} gave {ob!r} / {os_!r}")
+                seen.append(type(ob).__name__)
+            elif not all(isinstance(o, np.ndarray) and np.array_equal(o, images[i0 + j])
+                         for o in (ob, os_)):
+                fail(f"isolate: good member {i0 + j} is not exact")
+        try:
+            decompress_tiled_batch(batch, device=dev)
+            fail(f"on_error='raise' did not raise on batch {i0 // 3}")
+        except errors.DecompressionError:
+            pass
+    say("7 isolate", batches=len(batches), bad_members=seen, good_members_exact=True)
+
+
+def flct_long_row(np, torch, dev, card) -> dict:
+    """Phase 7, the long row: one LONG_SIDE^2 tile of uniform gray16 noise
+    whose stream passes 2^31 bits, encoded on the card, held to the native
+    codec, decoded exactly through K2's 64-bit-position instantiation. Host
+    clock around each call (each ends with its result on the host)."""
+    from felics_tpu_torch import compress_tiled_bytes, decompress_tiled_bytes, native
+    from felics_tpu_torch.config import TileConfig
+    from felics_tpu_torch.format import header_for_array
+    from felics_tpu_torch.ops import tile_codec as tcd
+    from felics_tpu_torch.parallel import flct
+
+    side = LONG_SIDE
+    img = np.random.default_rng(3).integers(0, 1 << 16, (side, side), dtype=np.uint16)
+    tc = TileConfig(side, side)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    tcd.ENCODE_LAUNCHES = tcd.DECODE_LAUNCHES = tcd.DECODE_WIDE_LAUNCHES = 0
+    t0 = time.perf_counter()
+    blob, k1_ms = profiled(torch, lambda: compress_tiled_bytes(img, tc, device=dev),
+                           "flct_encode_kernel")
+    t1 = time.perf_counter()
+    hd = flct.read_tiled_header(blob)
+    n_bytes = int(hd.tile_lengths[0])
+    # The tile's byte length is K1's bit count rounded up to bytes.
+    min_bits = 8 * (n_bytes - 1) + 1
+    if hd.n_tiles != 1 or min_bits <= 1 << 31:
+        fail(f"long row: {hd.n_tiles} tiles, a stream of at least {min_bits} bits "
+             "does not pass 2^31")
+    nat = native.compress_tiled(img, header_for_array(img), side, side, 1)
+    t2 = time.perf_counter()
+    if blob != nat:
+        fail("long row: container differs from the native codec")
+    encode_launches = tcd.ENCODE_LAUNCHES
+    t3 = time.perf_counter()
+    out, k2_ms = profiled(torch, lambda: decompress_tiled_bytes(blob, device=dev),
+                          "flct_decode_kernel")
+    t4 = time.perf_counter()
+    wide = tcd.DECODE_WIDE_LAUNCHES
+    if out.dtype != img.dtype or not np.array_equal(out, img):
+        fail("long row: round trip is not exact")
+    if not (wide and wide == tcd.DECODE_LAUNCHES):
+        fail(f"long row: K2's 64-bit instantiation did not run ({wide} of "
+             f"{tcd.DECODE_LAUNCHES} launches)")
+    row = {"shape": [side, side], "tile": side, "stream_bytes": n_bytes,
+           "stream_bits_at_least": min_bits, "over_2_31": min_bits / (1 << 31),
+           "bits_per_pixel": 8 * n_bytes / side**2, "encode_s": t1 - t0,
+           "k1_kernel_ms": k1_ms, "native_1core_encode_s": t2 - t1,
+           "decode_s": t4 - t3, "k2_kernel_ms": k2_ms,
+           "k2_us_per_step": k2_ms and k2_ms * 1e3 / (side * side - 2),
+           "encode_launches": encode_launches, "decode_wide_launches": wide,
+           "peak_device_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "native_bytes_identical": True, "exact_round_trip": True}
+    say("7 long row", nvidia_smi=card, **row)
+    return row
+
+
+def profiled(torch, fn, kernel: str):
+    """fn()'s result and the device ms of the kernels whose name holds
+    `kernel` in that one call, from torch.profiler (None when it saw no
+    such kernel)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    spans = [e.time_range.end - e.time_range.start for e in prof.events()
+             if e.device_type.name == "CUDA" and kernel in e.name]
+    return out, sum(spans) / 1e3 if spans else None
 
 
 def ptxas_frames(log: str) -> dict:
@@ -253,17 +507,10 @@ def device_ms(torch, fn, kernel: str, reps: int = 10):
     """Mean device time (ms) of the kernels whose name holds `kernel` over
     `reps` calls of fn, from torch.profiler (one warm call first); None
     when the profiler saw no such kernel."""
-    from torch.profiler import ProfilerActivity, profile
-
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    spans = [e.time_range.end - e.time_range.start for e in prof.events()
-             if e.device_type.name == "CUDA" and kernel in e.name]
-    return sum(spans) / 1e3 / reps if spans else None
+    _, ms = profiled(torch, lambda: [fn() for _ in range(reps)], kernel)
+    return None if ms is None else ms / reps
 
 
 def need_gpu_and_repo():
@@ -314,11 +561,13 @@ def main() -> None:
         python=sys.version.split()[0], build_s=round(build_s, 3),
         nvcc_s=_build.BuildInfo.seconds, ptxas=ptxas)
     # K1 and K2 keep their state in registers and shared memory: no stack
-    # frame, no spills (checked when this run built the library).
+    # frame, no spills (checked when this run built the library). K1 has 2
+    # instantiations (K 6, 15), K2 8 (K x ring in shared memory or not x
+    # 32- or 64-bit positions).
     flct_frames = {f: v for f, v in frames.items()
                    if "flct_encode_kernel" in f or "flct_decode_kernel" in f}
     if _build.BuildInfo.seconds and (
-            len(flct_frames) < 6 or any(any(v) for v in flct_frames.values())):
+            len(flct_frames) < 10 or any(any(v) for v in flct_frames.values())):
         fail(f"K1/K2 ptxas (stack, spill stores, spill loads): {flct_frames}")
     say("1 ptxas K1 K2", stack_spill_st_spill_ld=flct_frames)
 
@@ -350,6 +599,9 @@ def main() -> None:
         return enc_err, dec_err, {"encode_plain_ms": (t1 - t0) * 1e3,
                                   "decode_plain_ms": (t3 - t2) * 1e3}
 
+    # The native C++ codec, which phases 2-7 hold the containers to.
+    subprocess.run([sys.executable, os.path.join(REPO, "native", "build.py")],
+                   check=True, capture_output=True)
     errs = {"encode": 0, "decode": 0}
     cases = [
         ("gray8 16x16 t8 zero prior", (16, 16), 255, (8, 8), True, False),
@@ -378,9 +630,8 @@ def main() -> None:
         say("2 kernels", case=name, tiles=nt, enc_err=e, dec_err=d)
 
     # Noise on a checkerboard of dark and bright cells, under a prior that
-    # holds every bucket at k = 0: each pixel costs ~230 bits, the first
-    # width hint (~20 bits a pixel) is far too narrow, and encode_words must
-    # relaunch wider.
+    # holds every bucket at k = 0: each pixel costs ~230 bits, far past the
+    # first width hint (~20 bits a pixel); both kernels at the exact width.
     cfg8 = tiled_config_for_depth(PixelDepth.EIGHT)
     noise = checker_noise(16, 16, 7, np)
     tiles = tiling.image_tiles(upload_image(noise, dev)[None], 8, 8)
@@ -389,18 +640,44 @@ def main() -> None:
                          dtype=torch.int32, device=dev)
     k0_bias[..., 0] = 0
     hint = tcd.width_hint(cfg8, t, c)
+    max_bits = int(tcd.encode_tiles(tiles, cfg8, 8, 8, hint, k0_bias)[1].max())
+    W = tiling.exact_width(max_bits)
+    e, d, _ = both_ways("gray8 noise k=0 prior", tiles, k0_bias, cfg8, 8, 8, W)
+    errs["encode"], errs["decode"] = max(errs["encode"], e), max(errs["decode"], d)
+    say("2 kernels", case="gray8 noise k=0 prior", first_W=hint, W=W,
+        max_bits=max_bits, enc_err=e, dec_err=d)
+
+    # The finish half's relaunch, the one every caller takes: 64x64 noise at
+    # tile 32 under a width hint held at its smallest bucket (64 words, 2
+    # bits a pixel), as if the widest stream seen had been one word.
+    # encode_finish must launch K1 once more, at the exact width; its words
+    # must equal a direct launch there, both kernels their plain versions,
+    # and the container the native codec's. The hints are put back after.
+    noise = checker_noise(64, 64, 8, np)
+    hd = header_for_array(noise)
+    saved = dict(tcd._w_hints), dict(tiling._cap_hints)
+    tcd._w_hints[(TILE * TILE, 1, hd.pixel_depth)] = 1
     before = tcd.ENCODE_LAUNCHES
-    words, bits = tiling.encode_words(tiles, k0_bias, cfg8, 8, 8)
-    relaunched = tcd.ENCODE_LAUNCHES - before == 2 and words.shape[1] > hint
-    if not relaunched:
-        fail(f"noise case did not relaunch wider (hint {hint}, W {words.shape[1]})")
-    e, d, _ = both_ways("gray8 noise k=0 prior", tiles, k0_bias, cfg8, 8, 8,
-                        words.shape[1])
-    wk, bk = tcd.encode_tiles(tiles, cfg8, 8, 8, words.shape[1], k0_bias)
-    if not (torch.equal(wk, words) and torch.equal(bk, bits)):
-        fail("relaunched encode differs from a direct launch at that width")
-    say("2 kernels", case="gray8 noise relaunch", first_W=hint,
-        relaunch_W=words.shape[1], max_bits=int(bits.max()), enc_err=e, dec_err=d)
+    p = tiling.encode_dispatch([noise], [hd], TILE, TILE, True, dev)
+    hint = p.W
+    blob = tiling.encode_finish(p)[0]
+    relaunches = tcd.ENCODE_LAUNCHES - before - 1
+    tcd._w_hints, tiling._cap_hints = saved
+    max_bits = int(p.bits.max())
+    if not (hint == 64 and relaunches == 1 and p.W == tiling.exact_width(max_bits) > hint):
+        fail(f"encode_finish did not relaunch once at the exact width (hint {hint}, "
+             f"W {p.W}, {relaunches} relaunches, {max_bits} bits)")
+    wk, bk = tcd.encode_tiles(p.tiles, p.cfg, TILE, TILE, p.W, p.prior)
+    if not (torch.equal(wk, p.words) and torch.equal(bk, p.bits)):
+        fail("encode_finish's relaunch differs from a direct launch at that width")
+    if blob != native.compress_tiled(noise, hd, TILE, TILE):
+        fail("the relaunched container differs from the native codec")
+    e, d, _ = both_ways("gray8 64x64 noise t32, relaunched W", p.tiles, p.prior, p.cfg,
+                        TILE, TILE, p.W)
+    errs["encode"], errs["decode"] = max(errs["encode"], e), max(errs["decode"], d)
+    say("2 kernels", case="gray8 noise relaunch in encode_finish", first_W=hint,
+        relaunch_W=p.W, max_bits=max_bits, enc_err=e, dec_err=d,
+        native_bytes_identical=True)
 
     # Garbage words (random, and all ones: an endless unary run) for K2,
     # both depths and 1 or 3 planes.
@@ -421,8 +698,6 @@ def main() -> None:
         say("2 kernels", case=f"garbage words {depth.name} C={c}", rows=40, dec_err=d)
 
     # ---- phase 3: the main path at full size ----------------------------
-    subprocess.run([sys.executable, os.path.join(REPO, "native", "build.py")],
-                   check=True, capture_output=True)
     classes = flct_classes(np)
 
     # Both kernels against their plain versions at each class's batch shape
@@ -752,7 +1027,12 @@ def main() -> None:
             outcomes[f"{name}[{i}]"] = f"{outcome} {secs:.3f}s"
     say("4 corrupt flcs", **outcomes)
 
-    foreign = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "felics_tpu")]
+    # ---- phase 7: the stream pair, isolation, the long row ----------------
+    stream_launches = flct_stream(np, torch, dev, card, classes, blobs_by_class)
+    flct_isolate(np, dev, *blobs_by_class["gray8"])
+    long_row = flct_long_row(np, torch, dev, card)
+
+    foreign =[m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "felics_tpu")]
     if foreign:
         fail(f"modules of JAX or of the JAX package were imported: {foreign[:5]}")
     def entry(name, replaces, n_launches, per_call, err, ms, plain_ms, bnd, **extra):
@@ -779,7 +1059,8 @@ def main() -> None:
               full_shape_ms_by_class=flct_by_class("encode_ms"),
               kernel_only_ms_by_class=flct_by_class("encode_kernel_ms"),
               plain_ms_by_class=flct_by_class("encode_plain_ms"),
-              bound_ms_by_class={c: r["encode_bound"][0] for c, r in kt.items()}),
+              bound_ms_by_class={c: r["encode_bound"][0] for c, r in kt.items()},
+              stream_launches=stream_launches["encode"]),
         entry("flct_decode", "felics_tpu/ops/pallas_codec.py:805", launches["decode"],
               per_call["decode"], errs["decode"], g8k["decode_ms"],
               g8k["decode_plain_ms"], g8k["decode_bound"], shape=flct_shape,
@@ -787,17 +1068,23 @@ def main() -> None:
               us_per_step_by_class=flct_by_class("decode_us_per_step"),
               kernel_only_ms_by_class=flct_by_class("decode_kernel_ms"),
               plain_ms_by_class=flct_by_class("decode_plain_ms"),
-              bound_ms_by_class={c: r["decode_bound"][0] for c, r in kt.items()}),
+              bound_ms_by_class={c: r["decode_bound"][0] for c, r in kt.items()},
+              stream_launches=stream_launches["decode"],
+              # the 64-bit-position instantiation, on the long row
+              wide_launches=long_row["decode_wide_launches"],
+              wide_decode_s=long_row["decode_s"], wide_kernel_ms=long_row["k2_kernel_ms"]),
         entry("flcs_kscan", "felics_tpu/ops/kscan.py:108", flcs_launches["kscan"],
               flcs_per_call["kscan"], flcs_errs["kscan"], full["gray8"]["kscan_ms"],
               full["gray8"]["kscan_plain_ms"], full["gray8"]["kscan_bound"],
               shape="gray8 4x512^2", full_shape_ms_by_class=by_class["kscan_ms"],
+              bound_ms_by_class={c: r["kscan_bound"][0] for c, r in full.items()},
               small_shape="gray8 4x64^2", small_ms=flcs_timing["kscan"][0],
               small_plain_ms=flcs_timing["kscan"][1]),
         entry("flcs_decode", "felics_tpu/core/jax_codec.py:303", flcs_launches["decode"],
               flcs_per_call["decode"], flcs_errs["decode"], full["gray8"]["decode_ms"],
               full["gray8"]["decode_plain_ms"], full["gray8"]["decode_bound"],
               shape="gray8 4x512^2", full_shape_ms_by_class=by_class["decode_ms"],
+              bound_ms_by_class={c: r["decode_bound"][0] for c, r in full.items()},
               table_zero_ms=zero_ms, small_shape="gray8 4x64^2",
               small_ms=flcs_timing["decode"][0], small_plain_ms=flcs_timing["decode"][1]),
     ]
@@ -897,20 +1184,67 @@ def stages() -> None:
                                         device=dev)
             torch.cuda.synchronize()
             wall_us = (time.perf_counter() - t0) * 1e6
-        spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
-                       if e.device_type.name == "CUDA")
-        busy, cur = 0.0, None
-        for s, e in spans:  # union of the device spans
-            if cur is None or s > cur[1]:
-                busy += 0 if cur is None else cur[1] - cur[0]
-                cur = [s, e]
-            else:
-                cur[1] = max(cur[1], e)
-        busy += 0 if cur is None else cur[1] - cur[0]
+        busy = device_busy_us(prof)
         print(json.dumps({"nvidia_smi": card, "cls": name,
                           "profiled_wall_ms": wall_us / 1e3,
                           "device_busy_ms": busy / 1e3,
                           "idle_share": 1 - busy / wall_us}), flush=True)
+
+
+def device_busy_us(prof) -> float:
+    """Microseconds in which the device ran anything: the union of the
+    profiler's device spans."""
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type.name == "CUDA")
+    busy, cur = 0.0, None
+    for s, e in spans:
+        if cur is None or s > cur[1]:
+            busy += 0 if cur is None else cur[1] - cur[0]
+            cur = [s, e]
+        else:
+            cur[1] = max(cur[1], e)
+    return busy + (0 if cur is None else cur[1] - cur[0])
+
+
+def stream_trace() -> None:
+    """The FLCT stream pair beside its controls (phase 7's stream_calls) on
+    phase 7's batches, each call once under torch.profiler (CPU and CUDA)
+    after two warm calls: wall ms, the device's busy ms and idle share, and
+    the host operations with the most time of their own. One JSON line per
+    class and call."""
+    np, torch = need_gpu_and_repo()
+    from torch.profiler import ProfilerActivity, profile
+
+    from felics_tpu_torch import compress_tiled_batch, compress_tiled_stream
+    from felics_tpu_torch.config import TileConfig
+
+    dev = torch.device("cuda")
+    card = smi()
+    tc = TileConfig(TILE, TILE)
+    for name, images in flct_classes(np):
+        n = STREAM_CHUNKS[name]
+        chunks = [images[i : i + n] for i in range(0, len(images), n)]
+        blobs = compress_tiled_batch(images, tc, device=dev)
+        streamed = compress_tiled_stream(chunks, tc, depth=STREAM_DEPTH, device=dev)
+        calls = stream_calls(tc, dev, images, chunks, blobs, streamed)
+        for call, fn in calls.items():
+            fn()
+            fn()
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                wall_us = (time.perf_counter() - t0) * 1e6
+            busy = device_busy_us(prof)
+            top = sorted(prof.key_averages(), key=lambda e: e.self_cpu_time_total,
+                         reverse=True)[:12]
+            print(json.dumps({
+                "nvidia_smi": card, "cls": name, "call": call,
+                "profiled_wall_ms": wall_us / 1e3, "device_busy_ms": busy / 1e3,
+                "idle_share": 1 - busy / wall_us,
+                "top_host_self_ms": [[e.key, e.self_cpu_time_total / 1e3, e.count]
+                                     for e in top]}), flush=True)
 
 
 def flct_only() -> None:
@@ -939,5 +1273,7 @@ if __name__ == "__main__":
         stages()
     elif sys.argv[1:] == ["--flct"]:
         flct_only()
+    elif sys.argv[1:] == ["--stream"]:
+        stream_trace()
     else:
         main()

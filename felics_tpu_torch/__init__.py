@@ -19,10 +19,18 @@ host without CUDA; pass ``device="cpu"`` for the plain PyTorch versions):
   kind from the bytes;
 * ``compress_images_bytes`` / ``decompress_images_bytes`` — a batch;
 * ``probe`` — header-only metadata;
-* ``compress_tiled_bytes`` / ``decompress_tiled_bytes`` and
-  ``compress_tiled_batch`` / ``decompress_tiled_batch`` — the FLCT
-  pipeline directly.
+* ``compress_tiled_bytes`` / ``decompress_tiled_bytes``,
+  ``compress_tiled_batch`` / ``decompress_tiled_batch`` (``on_error``
+  ``"raise"`` or ``"isolate"``) and the pipelined
+  ``compress_tiled_stream`` / ``decompress_tiled_stream`` — the FLCT
+  pipeline directly;
+* ``Header``, ``ColorType``, ``PixelDepth``, ``MAGIC``, ``read_header``,
+  ``write_header`` and ``CodingConfig`` / ``CONFIG_8BIT`` /
+  ``CONFIG_16BIT`` — the FLCS header and the coding configs, as the
+  reference package exports them.
 """
+
+__version__ = "0.1.0"
 
 from felics_tpu_torch.api import (
     compress_image,
@@ -34,11 +42,22 @@ from felics_tpu_torch.api import (
     header_for_array,
     probe,
 )
+from felics_tpu_torch.config import CONFIG_8BIT, CONFIG_16BIT, CodingConfig
 from felics_tpu_torch.device import resolve_device
 from felics_tpu_torch.errors import DecompressionError
+from felics_tpu_torch.format import (
+    MAGIC,
+    ColorType,
+    Header,
+    PixelDepth,
+    read_header,
+    write_header,
+)
 from felics_tpu_torch.parallel.batch import (
     compress_tiled_batch,
+    compress_tiled_stream,
     decompress_tiled_batch,
+    decompress_tiled_stream,
 )
 from felics_tpu_torch.parallel.tiling import (
     compress_tiled_bytes,
@@ -46,18 +65,30 @@ from felics_tpu_torch.parallel.tiling import (
 )
 
 __all__ = [
+    "__version__",
+    "CONFIG_16BIT",
+    "CONFIG_8BIT",
+    "CodingConfig",
+    "ColorType",
     "DecompressionError",
+    "Header",
+    "MAGIC",
+    "PixelDepth",
     "compress_image",
     "compress_image_bytes",
     "compress_images_bytes",
     "compress_tiled_batch",
     "compress_tiled_bytes",
+    "compress_tiled_stream",
     "decompress_image",
     "decompress_image_bytes",
     "decompress_images_bytes",
     "decompress_tiled_batch",
     "decompress_tiled_bytes",
+    "decompress_tiled_stream",
     "header_for_array",
     "probe",
+    "read_header",
     "resolve_device",
+    "write_header",
 ]

@@ -34,7 +34,8 @@
 //   and the update unroll;
 // - bits: three words in registers, the third fetched when the first is
 //   used up, and a funnel shift reads 32 bits at any offset; positions are
-//   32-bit;
+//   32-bit, or 64-bit in a second instantiation that the wrapper takes only
+//   for rows too long for 32 (ops/tile_codec.py decode_wide_positions);
 // - the step computes the in-range and the out-of-range value and picks
 //   one, so that only the unary run's loop diverges between tiles;
 // - output: at the end of each row the block copies its tiles' rows from
@@ -46,6 +47,7 @@
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <type_traits>
 
 #include "flct_common.cuh"
 
@@ -66,19 +68,21 @@ struct Params {
 
 // MSB-first reader of one row: the current word, the next and the one after,
 // with zeros past the row; a funnel shift reads 32 bits at any offset.
-// Positions are int: the wrapper keeps 32 * W below 2^31.
+// Positions are Pos: int where 32 * W plus a step's reads stays below 2^31
+// (the fast path), long long above that.
+template <typename Pos>
 struct BitReader {
   const uint32_t* row;
-  int W, next;   // next: index of the word after w2
+  Pos W, next;   // next: index of the word after w2
   uint32_t w0, w1, w2;
   int s;         // bits of w0 consumed, 0..31
-  int base;      // stream position of w0's first bit
+  Pos base;      // stream position of w0's first bit
 
-  __device__ __forceinline__ uint32_t word(int i) const {
+  __device__ __forceinline__ uint32_t word(Pos i) const {
     return i < W ? __ldg(row + i) : 0u;
   }
 
-  __device__ __forceinline__ void init(const uint32_t* r, int w) {
+  __device__ __forceinline__ void init(const uint32_t* r, Pos w) {
     row = r;
     W = w;
     w0 = word(0);
@@ -107,15 +111,22 @@ struct BitReader {
     }
   }
 
-  __device__ __forceinline__ int pos() const { return base + s; }
+  __device__ __forceinline__ Pos pos() const { return base + s; }
 };
 
-template <int K>
+// The unary run's count: 32 bits beside 32-bit positions; beside 64-bit
+// ones a corrupt run can pass 2^32 ones, and the count keeps them all so
+// that the value saturates as the plain version's does.
+template <typename Pos>
+using RunCount = typename std::conditional<sizeof(Pos) == 8, uint64_t, uint32_t>::type;
+
+template <int K, typename Pos>
 struct Tile {
-  BitReader br;
+  BitReader<Pos> br;
   uint32_t* table;  // entry e at table[e * tpb]
   int tpb;          // tiles a block
-  int nb, max_context, limit;
+  int nb, max_context;
+  Pos limit;
 
   // One pixel from its two neighbours' values. Branch-free but for the
   // unary run: the in-range and the out-of-range decodings are both worked
@@ -146,14 +157,14 @@ struct Tile {
         static_cast<int32_t>(static_cast<uint32_t>(l) + static_cast<uint32_t>(r >= nn ? r - nn : r));
 
     // Out of range: sign bit, unary run (never past 32*W), k remainder
-    // bits. The Rice value (q << k) + rem is hi:lo, 64 bits, as a corrupt
-    // run can be 32 * W ones long.
+    // bits. The Rice value (q << k) + rem is hi:lo, 64 bits or more, as a
+    // corrupt run can be 32 * W ones long; any bit above lo saturates it.
     uint32_t* trow = table + flct::bucket_of(static_cast<uint32_t>(ctx), nb) * K * tpb;
     uint32_t row[K];
     flct::load_row(trow, tpb, row);
     const int k = flct::k_select(row);
     br.skip(in ? (longer ? m + 2 : m + 1) : 2);
-    uint32_t q = 0;
+    RunCount<Pos> q = 0;
     if (!in) {
       while (br.pos() < limit) {
         const uint32_t inv = ~br.peek32();
@@ -169,8 +180,11 @@ struct Tile {
     }
     const uint32_t rem = k > 0 && !in ? br.peek(k) : 0u;
     br.skip(in ? 0 : k);
-    const uint32_t lo = (q << k) | rem;
-    const uint32_t hi = k > 0 ? q >> (32 - k) : 0u;
+    const uint32_t lo = static_cast<uint32_t>(q << k) | rem;
+    // Bits 32.. of the Rice value: q >> (32 - k), or q >> 32 when k = 0
+    // (always 0 for a 32-bit count).
+    const RunCount<Pos> hi_all = k > 0 ? q >> (32 - k) : (q >> 16) >> 16;
+    const uint32_t hi = static_cast<uint32_t>(hi_all);
 #pragma unroll
     for (int j = 0; j < K; ++j) {
       row[j] += in ? 0u : __funnelshift_r(lo, hi, j) + 1u + j;
@@ -181,7 +195,7 @@ struct Tile {
     const uint32_t room = above ? 0x7FFFFFFFu - static_cast<uint32_t>(h)
                                 : static_cast<uint32_t>(l) ^ 0x80000000u;
     const int32_t out_value =
-        hi != 0u || lo >= room
+        hi_all != 0u || lo >= room
             ? (above ? INT32_MAX : INT32_MIN)
             : static_cast<int32_t>(above ? static_cast<uint32_t>(h) + 1u + lo
                                          : static_cast<uint32_t>(l) - 1u - lo);
@@ -204,7 +218,7 @@ __device__ __forceinline__ void store_row(const int32_t* ring, const Params& p, 
   __syncwarp();
 }
 
-template <int K, bool kRingShared>
+template <int K, bool kRingShared, typename Pos>
 __global__ void __launch_bounds__(kMaxTiles) flct_decode_kernel(const Params p) {
   extern __shared__ uint32_t smem[];
   const int lane = threadIdx.x, tpb = blockDim.x;
@@ -219,13 +233,13 @@ __global__ void __launch_bounds__(kMaxTiles) flct_decode_kernel(const Params p) 
                           : p.rings + static_cast<long long>(blockIdx.x) * (p.tw + 1) * rs;
   int32_t* ring = ring_all + lane;  // entry x at ring[x * rs]
 
-  Tile<K> s;
-  s.br.init(p.words + tile * p.W, static_cast<int>(p.W));
+  Tile<K, Pos> s;
+  s.br.init(p.words + tile * p.W, static_cast<Pos>(p.W));
   s.table = smem + lane;
   s.tpb = tpb;
   s.nb = p.nb;
   s.max_context = p.max_context;
-  s.limit = static_cast<int>(p.W * 32);
+  s.limit = static_cast<Pos>(p.W * 32);
   const int32_t* pr = p.prior + tile * p.prior_stride;
   const int tw = p.tw;
 
@@ -275,9 +289,9 @@ __global__ void __launch_bounds__(kMaxTiles) flct_decode_kernel(const Params p) 
   }
 }
 
-template <int K, bool kRingShared>
+template <int K, bool kRingShared, typename Pos>
 cudaError_t launch(const Params& p, int tpb, size_t smem, cudaStream_t stream) {
-  auto kernel = flct_decode_kernel<K, kRingShared>;
+  auto kernel = flct_decode_kernel<K, kRingShared, Pos>;
   if (smem > static_cast<size_t>(kDefaultSmem)) {
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
@@ -288,23 +302,35 @@ cudaError_t launch(const Params& p, int tpb, size_t smem, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+template <typename Pos>
+cudaError_t launch_for(const Params& p, int K, int tpb, int ring_shared, size_t smem,
+                       cudaStream_t s) {
+  if (K == 6) {
+    return ring_shared ? launch<6, true, Pos>(p, tpb, smem, s)
+                       : launch<6, false, Pos>(p, tpb, smem, s);
+  }
+  return ring_shared ? launch<15, true, Pos>(p, tpb, smem, s)
+                     : launch<15, false, Pos>(p, tpb, smem, s);
+}
+
 }  // namespace
 
 extern "C" {
 
 // Launches K2 on `stream`, one block of `tpb` threads (1..32) per `tpb`
 // tiles; returns cudaGetLastError() (0 = ok). C is 1 or 3, K 6 or 15,
-// nb <= 6, tiles at least 2x2, and bit positions within int: 32 * W plus
-// 20 bits a pixel step (the most a step reads past the words) below 2^31.
-// `rings` ((n + tpb - 1) / tpb,
-// (tw + 1) * (tpb + 1)) int32 is read only when `ring_shared` is 0.
+// nb <= 6, tiles at least 2x2. `wide_positions` 0 takes the int-position
+// instantiation, which needs 32 * W plus 20 bits a pixel step (the most a
+// step reads past the words) below 2^31; 1 takes the long long one, for
+// any row. `rings` ((n + tpb - 1) / tpb, (tw + 1) * (tpb + 1)) int32 is
+// read only when `ring_shared` is 0.
 int flct_decode(const void* words, const void* prior, long long prior_stride,
                 void* out, int n, int C, int th, int tw, int depth, int nb,
                 int K, int max_context, long long W, int tpb, int ring_shared,
-                void* rings, void* stream) {
+                int wide_positions, void* rings, void* stream) {
   if (!(C == 1 || C == 3) || nb > flct::kMaxBuckets || th < 2 || tw < 2 ||
       !(K == 6 || K == 15) || tpb < 1 || tpb > kMaxTiles ||
-      W * 32 + 20LL * C * th * tw + 64 > INT32_MAX) {
+      (!wide_positions && W * 32 + 20LL * C * th * tw + 64 > INT32_MAX)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const Params p{static_cast<const uint32_t*>(words), W, static_cast<const int32_t*>(prior),
@@ -315,12 +341,9 @@ int flct_decode(const void* words, const void* prior, long long prior_stride,
   const size_t smem =
       (flct::kMaxBuckets * K * tpb + (ring_shared ? (tw + 1ULL) * (tpb + 1) : 0ULL)) * 4;
   const cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  cudaError_t e;
-  if (K == 6) {
-    e = ring_shared ? launch<6, true>(p, tpb, smem, s) : launch<6, false>(p, tpb, smem, s);
-  } else {
-    e = ring_shared ? launch<15, true>(p, tpb, smem, s) : launch<15, false>(p, tpb, smem, s);
-  }
+  const cudaError_t e = wide_positions
+                            ? launch_for<long long>(p, K, tpb, ring_shared, smem, s)
+                            : launch_for<int>(p, K, tpb, ring_shared, smem, s);
   return static_cast<int>(e);
 }
 

@@ -1,10 +1,21 @@
 """Device selection for the port, explicit and with no hidden fallback, and
-the device helpers both containers (FLCT and FLCS) share: image upload, one
-batched copy back to the host, and the causal neighbour indices."""
+the device helpers both containers (FLCT and FLCS) share: uploads through
+one staging buffer, copies back to the host, and the causal neighbour
+indices.
+
+On CUDA no helper here waits on the device: uploads go from pinned host
+memory with ``non_blocking=True`` on the current stream, and ``HostCopy``
+starts a copy into pinned memory and records an event that its ``wait``
+blocks on. PyTorch's caching host allocator hands a pinned block out again
+only once the copies recorded on it have completed, so a staging buffer is
+never overwritten while a copy still reads it, and it rounds sizes up to
+powers of two, so batches of similar sizes find their blocks again. On the
+CPU the same calls run without streams or pinning.
+"""
 
 from __future__ import annotations
 
-from typing import List
+from typing import List, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -12,8 +23,14 @@ import torch
 from felics_tpu_torch.core.context import neighbour_indices
 
 _NP_DTYPES = {
-    torch.bool: np.bool_, torch.uint8: np.uint8, torch.int32: np.int32,
-    torch.int64: np.int64,
+    torch.bool: np.bool_, torch.uint8: np.uint8, torch.int16: np.int16,
+    torch.int32: np.int32, torch.int64: np.int64,
+}
+# uint16 travels as int16 bit patterns (as_pixels masks them back).
+_TORCH_DTYPES = {
+    np.dtype(np.bool_): torch.bool, np.dtype(np.uint8): torch.uint8,
+    np.dtype(np.uint16): torch.int16, np.dtype(np.int16): torch.int16,
+    np.dtype(np.int32): torch.int32, np.dtype(np.int64): torch.int64,
 }
 
 
@@ -31,34 +48,86 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
+def stage(arrays: Sequence[np.ndarray], device: torch.device) -> Tuple[torch.Tensor, List[int]]:
+    """numpy arrays -> one uint8 buffer on ``device`` holding their bytes,
+    and each array's byte offset in it: one host staging buffer, one copy.
+    Each array starts at a multiple of its item size, so uint8 arrays in a
+    row lie back to back."""
+    offsets, total = [], 0
+    for a in arrays:
+        total = -(-total // a.itemsize) * a.itemsize
+        offsets.append(total)
+        total += a.nbytes
+    host = torch.empty(total, dtype=torch.uint8, pin_memory=device.type == "cuda")
+    flat = host.numpy()
+    for a, off in zip(arrays, offsets):
+        flat[off : off + a.nbytes] = np.ascontiguousarray(a).reshape(-1).view(np.uint8)
+    return host.to(device, non_blocking=True), offsets
+
+
+def upload(arrays: Sequence[np.ndarray], device: torch.device) -> List[torch.Tensor]:
+    """numpy arrays -> tensors of their shapes on ``device`` (views of one
+    staged buffer; uint16 arrives as int16 bit patterns)."""
+    arrays = [np.asarray(a) for a in arrays]
+    buf, offsets = stage(arrays, device)
+    return [
+        buf[off : off + a.nbytes].view(_TORCH_DTYPES[a.dtype]).reshape(a.shape)
+        for a, off in zip(arrays, offsets)
+    ]
+
+
+def as_pixels(t: torch.Tensor) -> torch.Tensor:
+    """Uploaded uint8 pixels, or uint16 ones as int16 bit patterns, as int32."""
+    if t.dtype == torch.int16:
+        return t.to(torch.int32) & 0xFFFF
+    return t.to(torch.int32)
+
+
 def upload_image(image: np.ndarray, device: torch.device) -> torch.Tensor:
     """(..., H, W[, 3]) uint8/uint16 images -> int32 tensor on ``device``,
-    moving the images' own bytes (uint16 travels as int16 and is masked
-    back)."""
-    image = np.ascontiguousarray(image)
-    if image.dtype == np.uint16:
-        t = torch.from_numpy(image.view(np.int16)).to(device)
-        return t.to(torch.int32) & 0xFFFF
-    return torch.from_numpy(image).to(device).to(torch.int32)
+    moving the images' own bytes."""
+    return as_pixels(upload([image], device)[0])
+
+
+class HostCopy:
+    """Several device tensors copied to the host in ONE transfer (their
+    bytes are concatenated on the device). On CUDA the copy goes into
+    pinned memory without waiting, followed by an event; ``wait()`` blocks
+    on that event and returns numpy arrays of the tensors' dtypes and
+    shapes."""
+
+    def __init__(self, *tensors: torch.Tensor):
+        flat = [t.contiguous().reshape(-1).view(torch.uint8) for t in tensors]
+        self.specs = [(t.dtype, tuple(t.shape), f.numel()) for t, f in zip(tensors, flat)]
+        dev_buf = torch.cat(flat)
+        self.event = None
+        if dev_buf.is_cuda:
+            self.buf = torch.empty(dev_buf.numel(), dtype=torch.uint8, pin_memory=True)
+            self.buf.copy_(dev_buf, non_blocking=True)
+            self.event = torch.cuda.Event()
+            self.event.record()
+        else:
+            self.buf = dev_buf
+
+    def wait(self) -> List[np.ndarray]:
+        if self.event is not None:
+            self.event.synchronize()
+        buf = self.buf.numpy()
+        out, off = [], 0
+        for dtype, shape, n in self.specs:
+            out.append(buf[off : off + n].view(_NP_DTYPES[dtype]).reshape(shape))
+            off += n
+        return out
 
 
 def to_host(*tensors: torch.Tensor) -> List[np.ndarray]:
-    """Copy several tensors to the host in ONE transfer (their bytes are
-    concatenated on the device), as numpy arrays of their own dtype/shape."""
-    flat = [t.contiguous().reshape(-1).view(torch.uint8) for t in tensors]
-    buf = torch.cat(flat).cpu().numpy()
-    out, off = [], 0
-    for t, f in zip(tensors, flat):
-        n = f.numel()
-        out.append(buf[off : off + n].view(_NP_DTYPES[t.dtype]).reshape(t.shape))
-        off += n
-    return out
+    """Copy several tensors to the host in one transfer and wait for it."""
+    return HostCopy(*tensors).wait()
 
 
 def neighbours(height: int, width: int, device) -> tuple:
     """The two causal neighbour indices of every raster pixel, as int64
-    tensors on ``device`` (first two pixels point at themselves)."""
-    return tuple(
-        torch.from_numpy(i.astype(np.int64)).to(device)
-        for i in neighbour_indices(height, width)
-    )
+    tensors on ``device``, uploaded without waiting (the first two pixels
+    point at themselves)."""
+    return tuple(upload([i.astype(np.int64) for i in neighbour_indices(height, width)],
+                        torch.device(device)))

@@ -64,12 +64,18 @@ class Header:
         return 1 if self.color_type == ColorType.GRAY else 3
 
 
-def header_bytes(header: Header) -> bytes:
+def header_bytes(header: Header, magic: bytes = MAGIC) -> bytes:
     """The 14-byte FLCS header (reference: src/compression/format.rs:51-61)."""
     return _HEADER_STRUCT.pack(
-        MAGIC, int(header.color_type), int(header.pixel_depth),
+        magic, int(header.color_type), int(header.pixel_depth),
         header.width, header.height,
     )
+
+
+def write_header(header: Header, to: BinaryIO, magic: bytes = MAGIC) -> None:
+    """Write the 14-byte header to a file object (felics_tpu/format.py::
+    write_header)."""
+    to.write(header_bytes(header, magic))
 
 
 def read_header(from_: BinaryIO) -> Header:

@@ -1,8 +1,9 @@
 """ctypes binding of the repository's native C++ codec, the port's comparator.
 
-Counterpart: the ``compress``, ``decompress`` and ``compress_tiled`` calls of
-felics_tpu/native/runtime.py. The library is ``native/build/libfelics_core.so``,
-built by ``python native/build.py`` from native/src/felics_core.cpp; the port
+Counterpart: the ``compress``, ``decompress``, ``compress_tiled`` and
+``decompress_tiled`` calls of felics_tpu/native/runtime.py. The library is
+``native/build/libfelics_core.so``, built by ``python native/build.py`` from
+native/src/felics_core.cpp; the port
 itself never calls it, ``chip_smoke.py`` holds the port's containers and
 images against it.
 
@@ -15,6 +16,9 @@ C ABI (0 = ok; a negative code names the error class):
     int fel_decompress(const uint8_t* data, size_t len, int32_t** out_pixels,
                        uint32_t* width, uint32_t* height, int* color_type,
                        int* pixel_depth);
+    int fel_decompress_tiled(const uint8_t* data, size_t len, int n_threads,
+                             int32_t** out_pixels, uint32_t* width,
+                             uint32_t* height, int* color_type, int* pixel_depth);
     void fel_free(void* ptr);
 """
 
@@ -68,6 +72,11 @@ def _load() -> ctypes.CDLL:
             u8p, size, ctypes.POINTER(i32p), ctypes.POINTER(u32),
             ctypes.POINTER(u32), ctypes.POINTER(i32), ctypes.POINTER(i32),
         ]
+        lib.fel_decompress_tiled.restype = i32
+        lib.fel_decompress_tiled.argtypes = [
+            u8p, size, i32, ctypes.POINTER(i32p), ctypes.POINTER(u32),
+            ctypes.POINTER(u32), ctypes.POINTER(i32), ctypes.POINTER(i32),
+        ]
         lib.fel_free.restype = None
         lib.fel_free.argtypes = [ctypes.c_void_p]
         _lib = lib
@@ -117,13 +126,27 @@ def compress_tiled(
 
 def decompress(data: bytes) -> np.ndarray:
     """(H, W[, 3]) uint8/uint16 image of an FLCS container."""
+    return _decode(data, lambda lib, buf, *out: lib.fel_decompress(buf, len(data), *out))
+
+
+def decompress_tiled(data: bytes, n_threads: int = 0) -> np.ndarray:
+    """(H, W[, 3]) uint8/uint16 image of an FLCT container; ``n_threads``
+    0 (or less) takes every host core."""
+    n = n_threads if n_threads > 0 else os.cpu_count() or 1
+    return _decode(
+        data, lambda lib, buf, *out: lib.fel_decompress_tiled(buf, len(data), n, *out))
+
+
+def _decode(data: bytes, call) -> np.ndarray:
+    """Run a native decoder ``call(lib, buf, *out pointers)`` and take its
+    pixels."""
     lib = _load()
     buf = (ctypes.c_uint8 * len(data)).from_buffer_copy(data)
     out_ptr = ctypes.POINTER(ctypes.c_int32)()
     width, height = ctypes.c_uint32(), ctypes.c_uint32()
     color, depth = ctypes.c_int(), ctypes.c_int()
-    _check(lib.fel_decompress(
-        buf, len(data), ctypes.byref(out_ptr), ctypes.byref(width),
+    _check(call(
+        lib, buf, ctypes.byref(out_ptr), ctypes.byref(width),
         ctypes.byref(height), ctypes.byref(color), ctypes.byref(depth),
     ))
     try:

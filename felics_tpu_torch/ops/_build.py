@@ -125,7 +125,7 @@ def library() -> ctypes.CDLL:
         lib.flct_decode.restype = i32
         lib.flct_decode.argtypes = [
             vp, vp, i64, vp, i32, i32, i32, i32, i32, i32, i32, i32, i64, i32,
-            i32, vp, vp,
+            i32, i32, vp, vp,
         ]
         lib.flcs_kscan.restype = i32
         lib.flcs_kscan.argtypes = [vp, vp, vp, vp, i32, i64, i32, i32, vp]

@@ -29,11 +29,10 @@ def shr32(v: torch.Tensor, s) -> torch.Tensor:
 
 
 def bit_length(x: torch.Tensor, max_bits: int) -> torch.Tensor:
-    """Exact bit_length of int64 x in [0, 2^max_bits), as int64."""
-    powers = torch.tensor(
-        [1 << b for b in range(max_bits)], dtype=torch.int64, device=x.device
-    )
-    return (x.unsqueeze(-1) >= powers).sum(-1)
+    """Exact bit_length of int64 x in [0, 2^max_bits), as int64. The shifts
+    are made on x's device: no host copy, so no wait on the device."""
+    shifts = torch.arange(max_bits, dtype=torch.int64, device=x.device)
+    return ((x.unsqueeze(-1) >> shifts) > 0).sum(-1)
 
 
 def to_i32_bits(v: torch.Tensor) -> torch.Tensor:

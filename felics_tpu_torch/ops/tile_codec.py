@@ -32,9 +32,12 @@ from felics_tpu_torch.ops.bits import (
 )
 
 # Kernel launches made by encode_tiles / decode_tiles (plain-version calls
-# are not counted). Callers reset them to 0 to see what a run launched.
+# are not counted); DECODE_WIDE_LAUNCHES counts the decode launches that
+# took the 64-bit-position instantiation (decode_wide_positions). Callers
+# reset them to 0 to see what a run launched.
 ENCODE_LAUNCHES = 0
 DECODE_LAUNCHES = 0
+DECODE_WIDE_LAUNCHES = 0
 
 DECODE_MIN_BLOCKS = 384  # flct_decode.cu: blocks to aim for (~3 per SM of an H100)
 
@@ -427,13 +430,23 @@ def decode_smem_bytes(K: int, tw: int, tpb: int) -> int:
     return 4 * (6 * K * tpb + (tw + 1) * (tpb + 1))
 
 
+def decode_wide_positions(W: int, c: int, th: int, tw: int) -> bool:
+    """Whether flct_decode.cu needs its 64-bit-position instantiation for
+    rows of W words: a step reads at most 20 bits past the last word
+    (c * th * tw steps, plus slack), and the 32-bit one keeps every position
+    below 2^31."""
+    return 32 * W + 20 * c * th * tw + 64 > _I32_MAX
+
+
 def decode_tiles(
     words: torch.Tensor, cfg: CodingConfig, th: int, tw: int, c: int,
     prior: torch.Tensor,
 ) -> torch.Tensor:
     """Decode (n, W) int32 word rows into (n, C, t) int32 planes. CUDA
-    tensors launch flct_decode.cu; CPU tensors run ``decode_tiles_ref``."""
-    global DECODE_LAUNCHES
+    tensors launch flct_decode.cu (its 64-bit-position instantiation for
+    rows that ``decode_wide_positions`` calls long); CPU tensors run
+    ``decode_tiles_ref``."""
+    global DECODE_LAUNCHES, DECODE_WIDE_LAUNCHES
     if words.dim() != 2 or words.dtype != torch.int32:
         raise ValueError("words must be an (n, W) int32 tensor")
     n, W = words.shape
@@ -443,8 +456,7 @@ def decode_tiles(
     if words.device.type != "cuda":
         raise ValueError(f"unsupported device {words.device}")
     _build.check_kernel_k(K)
-    if 32 * W + 20 * c * th * tw + 64 > _I32_MAX:
-        raise ValueError(f"word rows of {W} words are too long for the decode kernel")
+    wide = decode_wide_positions(W, c, th, tw)
     prior, stride = _check_prior(prior, n, c, nb, K, words.device)
     words = words.contiguous()
     out = torch.empty((n, c, th * tw), dtype=torch.int32, device=words.device)
@@ -459,9 +471,11 @@ def decode_tiles(
         code = lib.flct_decode(
             words.data_ptr(), prior.data_ptr(), stride, out.data_ptr(), n, c,
             th, tw, cfg.depth_bits, nb, K, int(cfg.max_context), W,
-            tpb, int(ring_shared), None if rings is None else rings.data_ptr(),
+            tpb, int(ring_shared), int(wide),
+            None if rings is None else rings.data_ptr(),
             torch.cuda.current_stream().cuda_stream,
         )
     _build.check(code, "flct_decode")
     DECODE_LAUNCHES += 1
+    DECODE_WIDE_LAUNCHES += int(wide)
     return out

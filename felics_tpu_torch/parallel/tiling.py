@@ -1,14 +1,25 @@
 """FLCT tiled container on one device, both directions.
 
 Counterpart: felics_tpu/parallel/tiling.py (``compress_tiled_bytes``,
-``decompress_tiled_bytes`` and the one-pass device chains behind them).
+``decompress_tiled_bytes``, and the dispatch/finish halves of its device
+chains, ``encode_container_dispatch``/``encode_container_finish`` and
+``decode_container_dispatch``/``decode_container_finish``).
 
-Encode: upload the image, edge-pad, YCoCg and cut tiles on the device; one
-exact int64 k0/prior pass; the encode kernel (relaunched at the exact width
-if a stream outgrew the first); word-aligned compaction; one device-to-host
-copy; header. Decode: length table; one upload of the payload; (n, wd)
-word rows; the decode kernel; crop, inverse YCoCg and a range check on the
-device; one device-to-host copy.
+Each direction is a dispatch half, which enqueues the whole device chain and
+never waits on the device, and a finish half, which waits on the chain's
+event and works on the host. Encode dispatch: one staged upload of a
+group's images, edge-pad, YCoCg and cut tiles on the device; one exact
+int64 k0/prior pass; the encode kernel at the width hint; word-aligned
+compaction into a buffer of hinted capacity; one copy to pinned host
+memory. Encode finish: relaunch at the exact width if a stream outgrew the
+hint, redo the compaction at the exact size if it outgrew the capacity,
+then strip the alignment and pack the containers. Decode dispatch: one
+staged upload of the payload, length table, priors and tile owners; (n,
+wd) word rows; the decode kernel; crop, inverse YCoCg and a range check on
+the device; one copy to pinned host memory. Decode finish: wait, and hand
+back the images with a validity flag each. ``*_group`` runs the two halves
+back to back; the batched and streamed calls in ``batch.py`` interleave
+them. Container bytes do not depend on the hints.
 
 Every function takes ``device``; nothing falls back to another engine or to
 the CPU. The k0 sums are int64 at both depths, so the reference's 16-bit
@@ -17,7 +28,8 @@ hi/lo split and its ``k0_device_exact`` gate have no counterpart here.
 
 from __future__ import annotations
 
-from typing import List, Optional, Sequence
+from dataclasses import dataclass
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -26,7 +38,7 @@ from felics_tpu_torch import errors
 from felics_tpu_torch.config import CodingConfig, TileConfig, tiled_config_for_depth
 from felics_tpu_torch.core.color import rgb_to_ycocg, ycocg_to_rgb
 from felics_tpu_torch.device import (
-    neighbours, resolve_device, to_host, upload_image,
+    HostCopy, as_pixels, neighbours, resolve_device, stage, upload,
 )
 from felics_tpu_torch.format import ColorType, Header, PixelDepth, header_for_array
 from felics_tpu_torch.ops import tile_codec
@@ -93,9 +105,9 @@ def k0_prior(
         [(wts * (qctx == b).unsqueeze(-1)).sum(dim=2) for b in range(nb)],
         dim=2,
     )  # (nt, C, nb, K)
+    (counts_t,) = upload([np.asarray(counts, np.int64)], dev)
     img = torch.repeat_interleave(
-        torch.arange(len(counts), device=dev),
-        torch.as_tensor(list(counts), device=dev),
+        torch.arange(len(counts), device=dev), counts_t, output_size=nt
     )
     totals = torch.zeros((len(counts), c, nb, K), dtype=torch.int64, device=dev)
     totals.index_add_(0, img, per_tile)
@@ -105,65 +117,141 @@ def k0_prior(
     return k0.to(torch.int32), prior[img].to(torch.int32)
 
 
-def encode_words(
-    tiles: torch.Tensor, prior: torch.Tensor, cfg: CodingConfig, th: int,
-    tw: int,
-):
-    """Encode kernel at the width hint; when a stream outgrew it, relaunch
-    once at the exact width its bit count asks for. Returns (words, bits)."""
-    nt, c, t = tiles.shape
-    W = tile_codec.width_hint(cfg, t, c)
-    words, bits = tile_codec.encode_tiles(tiles, cfg, th, tw, W, prior)
-    max_bits = int(bits.max())
-    if max_bits > 32 * W:
-        W = tile_codec.bucket_words(-(-max_bits // 32))
-        words, bits = tile_codec.encode_tiles(tiles, cfg, th, tw, W, prior)
-    tile_codec.observe_width(cfg, t, c, max_bits)
-    return words, bits
+def exact_width(max_bits: int) -> int:
+    """The bucketed word width that holds a stream of ``max_bits`` bits."""
+    return tile_codec.bucket_words(-(-int(max_bits) // 32))
 
 
-def aligned_payload(words: torch.Tensor, bits: torch.Tensor) -> torch.Tensor:
-    """Word-aligned compaction on the device: each tile's used words, in
-    tile order, as big-endian bytes (every tile starts on a 4-byte
-    boundary; ``flct.strip_word_alignment`` drops the pad bytes)."""
+_cap_hints: dict = {}  # (t, c, depth) -> most words a tile used on average in one call
+
+
+def payload_cap_hint(cfg: CodingConfig, nt: int, t: int, c: int) -> int:
+    """Words of the device buffer the compaction writes into: the raw
+    planes' size a tile until this shape has been seen, then 1.2x the
+    largest mean a tile has used (the reference's payload_cap_hint). A
+    payload that outgrows it is compacted again at its exact size, so the
+    hint costs a copy's size, never the bytes."""
+    key = (t, c, cfg.pixel_depth)
+    raw = -(-c * t * cfg.depth_bits // 32) + 2
+    hint = _cap_hints.get(key)
+    per_tile = raw if hint is None else min(raw, hint + hint // 5 + 16)
+    return tile_codec.bucket_words(nt * per_tile)
+
+
+def observe_payload(cfg: CodingConfig, t: int, c: int, total_words: int, nt: int) -> None:
+    key = (t, c, cfg.pixel_depth)
+    _cap_hints[key] = max(_cap_hints.get(key, 0), -(-int(total_words) // nt))
+
+
+def aligned_payload(words: torch.Tensor, bits: torch.Tensor, cap: int):
+    """Word-aligned compaction on the device, without waiting on it: each
+    tile's used words, in tile order, gathered into ``cap`` words (zero past
+    the last used one) as big-endian bytes, and the used word count (1,).
+    Every tile starts on a 4-byte boundary; ``flct.strip_word_alignment``
+    drops the pad bytes. Words past ``cap`` are dropped: the caller compares
+    the count with ``cap``."""
     n, W = words.shape
-    used = (bits + 31) // 32
-    keep = torch.arange(W, device=words.device).unsqueeze(0) < used.unsqueeze(1)
-    return words_to_bytes(words[keep])
+    used = ((bits + 31) // 32).clamp(max=W)
+    ends = torch.cumsum(used, 0)
+    j = torch.arange(cap, device=words.device)
+    tile = torch.searchsorted(ends, j, right=True).clamp(max=n - 1)
+    off = (j - (ends - used)[tile]).clamp(0, W - 1)
+    out = torch.where(j < ends[-1], words[tile, off], 0)
+    return words_to_bytes(out), ends[-1:]
 
 
-def encode_group(
+@dataclass
+class EncodePending:
+    """A group's encode chain in flight: what finish needs to wait on it,
+    redo its width or compaction, and pack its containers. After finish,
+    ``W``, ``words`` and ``bits`` are those the containers were packed from
+    (the relaunch's when there was one)."""
+
+    headers: List[Header]
+    counts: List[int]
+    th: int
+    tw: int
+    k_prior: bool
+    cfg: CodingConfig
+    tiles: torch.Tensor
+    prior: torch.Tensor
+    W: int
+    words: torch.Tensor
+    bits: torch.Tensor
+    cap: int
+    result: HostCopy  # bits, k0, used word count, payload bytes
+
+
+def encode_dispatch(
     images: Sequence[np.ndarray], headers: Sequence[Header], th: int, tw: int,
     k_prior: bool, device: torch.device,
-) -> List[bytes]:
-    """FLCT containers of same-geometry images (same tile dims, channel
-    count and depth) with one k0 pass, one encode launch (two if a stream
-    outgrew the first width) and one device-to-host copy."""
+) -> EncodePending:
+    """Enqueue the encode chain of same-geometry images (same tile dims,
+    channel count and depth) on the current stream: one staged upload, one
+    k0 pass, one encode launch at the width hint, the compaction and one
+    copy to the host. Never waits on the device."""
     cfg = tiled_config_for_depth(headers[0].pixel_depth)
     c = headers[0].num_channels
     nb, K = tile_codec.num_buckets(cfg), cfg.num_k
-    tiles = torch.cat(
-        [image_tiles(upload_image(im, device)[None], th, tw) for im in images]
-    )
+    views = upload(images, device)
+    if all(im.shape == images[0].shape for im in images):
+        tiles = image_tiles(as_pixels(torch.stack(views)), th, tw)
+    else:
+        tiles = torch.cat([image_tiles(as_pixels(v)[None], th, tw) for v in views])
     counts = [(-(-hd.height // th)) * (-(-hd.width // tw)) for hd in headers]
     if k_prior:
         k0, prior = k0_prior(tiles, counts, th, tw, cfg)
     else:
         k0 = torch.zeros((len(images), c, nb), dtype=torch.int32, device=device)
         prior = torch.zeros((c, nb, K), dtype=torch.int32, device=device)
-    words, bits = encode_words(tiles, prior, cfg, th, tw)
-    bits_np, k0_np, pay_np = to_host(bits, k0, aligned_payload(words, bits))
+    nt, _, t = tiles.shape
+    W = tile_codec.width_hint(cfg, t, c)
+    words, bits = tile_codec.encode_tiles(tiles, cfg, th, tw, W, prior)
+    cap = payload_cap_hint(cfg, nt, t, c)
+    pay, total = aligned_payload(words, bits, cap)
+    return EncodePending(
+        list(headers), counts, th, tw, k_prior, cfg, tiles, prior, W, words,
+        bits, cap, HostCopy(bits, k0, total, pay),
+    )
+
+
+def encode_finish(p: EncodePending) -> List[bytes]:
+    """Wait on a dispatched encode and pack its containers. A stream longer
+    than the width hint is encoded again at its exact width, and a payload
+    larger than the capacity compacted again at its exact size, both
+    synchronously on the current stream."""
+    bits_np, k0_np, total_np, pay_np = p.result.wait()
+    nt, c, t = p.tiles.shape
+    max_bits = int(bits_np.max())
+    total = int(((bits_np + 31) // 32).sum())
+    if max_bits > 32 * p.W:
+        p.W = exact_width(max_bits)
+        p.words, p.bits = tile_codec.encode_tiles(
+            p.tiles, p.cfg, p.th, p.tw, p.W, p.prior)
+        (pay_np,) = HostCopy(aligned_payload(p.words, p.bits, total)[0]).wait()
+    elif int(total_np[0]) > p.cap:
+        (pay_np,) = HostCopy(aligned_payload(p.words, p.bits, total)[0]).wait()
+    tile_codec.observe_width(p.cfg, t, c, max_bits)
+    observe_payload(p.cfg, t, c, total, nt)
     tile_bytes = (bits_np + 7) // 8
     payload = flct.strip_word_alignment(pay_np, tile_bytes)
     out, t0, p0 = [], 0, 0
-    for i, (hd, n_t) in enumerate(zip(headers, counts)):
+    for i, (hd, n_t) in enumerate(zip(p.headers, p.counts)):
         tb = tile_bytes[t0 : t0 + n_t]
         p1 = p0 + int(tb.sum())
         out.append(flct.pack_tiled_container(
-            hd, tw, th, tb, payload[p0:p1], k0_np[i] if k_prior else None,
+            hd, p.tw, p.th, tb, payload[p0:p1], k0_np[i] if p.k_prior else None,
         ))
         t0, p0 = t0 + n_t, p1
     return out
+
+
+def encode_group(
+    images: Sequence[np.ndarray], headers: Sequence[Header], th: int, tw: int,
+    k_prior: bool, device: torch.device,
+) -> List[bytes]:
+    """FLCT containers of same-geometry images: dispatch, then finish."""
+    return encode_finish(encode_dispatch(images, headers, th, tw, k_prior, device))
 
 
 def compress_tiled_bytes(
@@ -187,18 +275,17 @@ def compress_tiled_bytes(
 
 
 def word_rows(
-    payload: torch.Tensor, lens: np.ndarray, wd: int
+    payload: torch.Tensor, lens: torch.Tensor, wd: int
 ) -> torch.Tensor:
-    """Concatenated tile streams (uint8 on the device) -> (n, wd) int32 rows
-    of big-endian words, zero past each tile's byte length (the reference's
-    _expand_columns_jit)."""
+    """Concatenated tile streams (uint8) and their byte lengths (int64, on
+    the same device) -> (n, wd) int32 rows of big-endian words, zero past
+    each tile's byte length (the reference's _expand_columns_jit)."""
     dev = payload.device
-    lens_t = torch.from_numpy(np.asarray(lens, np.int64)).to(dev)
-    starts = torch.cumsum(lens_t, 0) - lens_t
+    starts = torch.cumsum(lens, 0) - lens
     off = torch.arange(wd * 4, device=dev)
     idx = (starts.unsqueeze(1) + off).clamp(max=max(payload.numel() - 1, 0))
     b = torch.where(
-        off < lens_t.unsqueeze(1), payload[idx].to(torch.int64), 0
+        off < lens.unsqueeze(1), payload[idx].to(torch.int64), 0
     ).reshape(-1, wd, 4)
     w = (b[..., 0] << 24) | (b[..., 1] << 16) | (b[..., 2] << 8) | b[..., 3]
     return torch.where(w >= (1 << 31), w - (1 << 32), w).to(torch.int32)
@@ -246,46 +333,63 @@ def empty_image(hd: flct.TiledHeader) -> np.ndarray:
     return np.zeros(shape, dtype)
 
 
-def decode_group(
+def decode_dispatch(
     headers: Sequence[flct.TiledHeader], payloads: Sequence[bytes],
     device: torch.device,
-) -> List[np.ndarray]:
-    """Images of same-geometry containers (same tile dims, channel count
-    and depth): one payload upload, one decode launch, device assembly and
-    one device-to-host copy. Raises InvalidValue for any member whose
-    decoded values do not fit its depth."""
+) -> HostCopy:
+    """Enqueue the decode chain of same-geometry containers (same tile dims,
+    channel count and depth) on the current stream: one staged upload of
+    the payloads, length table, priors and tile owners, one decode launch,
+    device assembly and one copy to the host of the validity flags and the
+    narrowed images (uint8, or uint16 bit patterns as int16). Never waits
+    on the device."""
     h0 = headers[0]
     cfg = tiled_config_for_depth(h0.pixel_depth)
     c, th, tw = h0.num_channels, h0.tile_h, h0.tile_w
     lens = np.concatenate([hd.tile_lengths for hd in headers])
     wd = tile_codec.bucket_words(int(-(-lens.max(initial=1) // 4)))
-    blob = bytearray(b"".join(payloads)) or bytearray(4)
-    payload = torch.frombuffer(blob, dtype=torch.uint8).to(device)
-    priors = torch.from_numpy(
-        np.stack([flct.prior_from_k0(hd.k0, cfg, c) for hd in headers])
-    ).to(device)
+    priors = np.stack([flct.prior_from_k0(hd.k0, cfg, c) for hd in headers])
+    owner = np.repeat(np.arange(len(headers)), [hd.n_tiles for hd in headers])
+    pays = [np.frombuffer(p, np.uint8) for p in payloads]
+    pays = pays if sum(p.size for p in pays) else [np.zeros(4, np.uint8)]
+    buf, offs = stage([lens, priors, owner] + pays, device)
+    lens_t = buf[offs[0] : offs[0] + lens.nbytes].view(torch.int64)
+    priors_t = buf[offs[1] : offs[1] + priors.nbytes].view(torch.int32).reshape(priors.shape)
+    payload = buf[offs[3] :]  # the uint8 payloads lie back to back
     if len(headers) == 1:
-        prior = priors[0]
+        prior = priors_t[0]
     else:
-        counts = torch.as_tensor([hd.n_tiles for hd in headers], device=device)
-        prior = priors[torch.repeat_interleave(
-            torch.arange(len(headers), device=device), counts
-        )]
+        prior = priors_t[buf[offs[2] : offs[2] + owner.nbytes].view(torch.int64)]
     bufs = tile_codec.decode_tiles(
-        word_rows(payload, lens, wd), cfg, th, tw, c, prior
+        word_rows(payload, lens_t, wd), cfg, th, tw, c, prior
     )
-    narrow = torch.uint8 if h0.pixel_depth == PixelDepth.EIGHT else torch.int32
+    narrow = torch.uint8 if h0.pixel_depth == PixelDepth.EIGHT else torch.int16
     imgs, flags, t0 = [], [], 0
     for hd in headers:
         out, valid = assemble_image(bufs[t0 : t0 + hd.n_tiles], hd)
         imgs.append(out.clamp(0, (1 << h0.pixel_depth.bits) - 1).to(narrow))
         flags.append(valid)
         t0 += hd.n_tiles
-    host = to_host(torch.stack(flags), *imgs)
-    if not host[0].all():
-        raise errors.InvalidValue("decoded value does not fit the pixel depth")
-    dtype = np.uint8 if h0.pixel_depth == PixelDepth.EIGHT else np.uint16
-    return [im.astype(dtype) for im in host[1:]]
+    return HostCopy(torch.stack(flags), *imgs)
+
+
+def decode_finish(p: HostCopy) -> Tuple[List[np.ndarray], np.ndarray]:
+    """Wait on a dispatched decode: (images, validity flag of each). An
+    image whose flag is False held a value outside its depth, and its
+    pixels are clamped garbage. The images are copied out of the pinned
+    buffer, which then goes back to the allocator's pool."""
+    flags, *imgs = p.wait()
+    imgs = [(im if im.dtype == np.uint8 else im.view(np.uint16)).copy() for im in imgs]
+    return imgs, flags.copy()
+
+
+def decode_group(
+    headers: Sequence[flct.TiledHeader], payloads: Sequence[bytes],
+    device: torch.device,
+) -> Tuple[List[np.ndarray], np.ndarray]:
+    """Images of same-geometry containers and their validity flags:
+    dispatch, then finish."""
+    return decode_finish(decode_dispatch(headers, payloads, device))
 
 
 def decompress_tiled_bytes(data: bytes, device="cuda") -> np.ndarray:
@@ -294,4 +398,7 @@ def decompress_tiled_bytes(data: bytes, device="cuda") -> np.ndarray:
     hd = flct.read_tiled_header(data)
     if hd.height == 0 or hd.width == 0:
         return empty_image(hd)
-    return decode_group([hd], [payload_of(data, hd)], dev)[0]
+    (img,), ok = decode_group([hd], [payload_of(data, hd)], dev)
+    if not ok[0]:
+        raise errors.InvalidValue("decoded value does not fit the pixel depth")
+    return img

@@ -21,7 +21,7 @@ from felics_tpu_torch.config import TileConfig, tiled_config_for_depth
 from felics_tpu_torch.device import upload_image
 from felics_tpu_torch.format import PixelDepth, header_for_array
 from felics_tpu_torch.ops import tile_codec as tcd
-from felics_tpu_torch.parallel import flct, tiling
+from felics_tpu_torch.parallel import batch, flct, tiling
 
 CPU = torch.device("cpu")
 torch.set_num_threads(1)
@@ -196,3 +196,74 @@ def test_cuda_decode_ring_in_global_scratch(cuda):
     words, bits = tcd.encode_tiles(tiles, cfg, th, tw, W, prior)
     assert int(bits.max()) <= 32 * W
     assert torch.equal(tcd.decode_tiles(words, cfg, th, tw, c, prior), tiles)
+
+
+@pytest.mark.cuda
+def test_cuda_decode_long_row_takes_wide_positions(cuda):
+    """A 2x2 tile in a row of more than 2^26 words (zero past its bits, so
+    the chain ends after 4 pixels): decode_tiles takes K2's 64-bit-position
+    instantiation, and the planes equal the plain version's and the tile."""
+    img = _image(11, (2, 2), np.uint8, False)
+    tiles, prior, cfg, th, tw = _inputs(img, (2, 2), "image", cuda)
+    words, _ = tcd.encode_tiles(tiles, cfg, th, tw, 64, prior)
+    W = (1 << 26) + 64
+    assert tcd.decode_wide_positions(W, 1, th, tw)
+    assert not tcd.decode_wide_positions(64, 1, th, tw)
+    rows = torch.zeros((1, W), dtype=torch.int32, device=cuda)
+    rows[:, :64] = words
+    before, wide_before = tcd.DECODE_LAUNCHES, tcd.DECODE_WIDE_LAUNCHES
+    got = tcd.decode_tiles(rows, cfg, th, tw, 1, prior)
+    assert tcd.DECODE_LAUNCHES == before + 1
+    assert tcd.DECODE_WIDE_LAUNCHES == wide_before + 1
+    assert torch.equal(got, tcd.decode_tiles_ref(rows, cfg, th, tw, 1, prior))
+    assert torch.equal(got, tiles)
+
+
+def _serving_images():
+    """Four geometries: gray8 at two sizes (one clamps the tile), rgb8 and
+    gray16."""
+    return [_image(20, (24, 24), np.uint8, True), _image(21, (13, 9), np.uint8, False),
+            _image(22, (16, 16, 3), np.uint8, True), _image(23, (16, 24), np.uint16, True),
+            _image(24, (24, 24), np.uint8, False)]
+
+
+@pytest.mark.cuda
+def test_cuda_stream_equals_batch(cuda):
+    """The stream pair on the card gives, batch by batch, the bytes of the
+    batched call on the card, which are the plain versions' bytes on the
+    CPU, at depths 1 to 3; the decode stream gives the images back."""
+    ims = _serving_images()
+    batches = [ims[:2], ims[2:4], [], ims[4:]]
+    tc = TileConfig(8, 8)
+    want = [batch.compress_tiled_batch(b, tc, device=cuda) for b in batches]
+    assert want == [batch.compress_tiled_batch(b, tc, device=CPU) for b in batches]
+    for depth in (1, 2, 3):
+        assert batch.compress_tiled_stream(iter(batches), tc, depth=depth, device=cuda) == want
+    outs = batch.decompress_tiled_stream(iter(want), depth=2, device=cuda)
+    for b, o in zip(batches, outs):
+        assert len(o) == len(b)
+        for im, out in zip(b, o):
+            assert out.dtype == im.dtype and np.array_equal(out, im)
+
+
+@pytest.mark.cuda
+def test_cuda_dispatch_halves_do_not_wait(cuda):
+    """Both dispatch halves enqueue their whole device chain without one
+    synchronising call: under torch.cuda.set_sync_debug_mode("error"),
+    which raises on any, they run through, and their finish halves give
+    the batched call's bytes and images."""
+    ims = _serving_images()
+    tc = TileConfig(8, 8)
+    blobs = batch.compress_tiled_batch(ims, tc, device=cuda)  # build, hints, pinned pool
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with pytest.raises(RuntimeError):  # the mode is live
+            int(torch.ones(1, device=cuda).sum())
+        enc = batch._encode_dispatch(ims, tc, cuda)
+        dec = batch._decode_dispatch(blobs, cuda, False)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert batch._encode_finish(enc) == blobs
+    for im, out in zip(ims, batch._decode_finish(dec, cuda, False)):
+        assert out.dtype == im.dtype and np.array_equal(out, im)

@@ -17,6 +17,7 @@ from felics_tpu.format import ColorType, PixelDepth
 from felics_tpu.parallel import tiling as ref
 from felics_tpu_torch import compress_tiled_bytes, decompress_tiled_bytes, errors
 from felics_tpu_torch.device import to_host, upload_image
+from felics_tpu_torch.format import header_for_array
 from felics_tpu_torch.ops import tile_codec as tcd
 from felics_tpu_torch.parallel import flct, tiling
 
@@ -140,24 +141,31 @@ def test_out_of_depth_values_raise_invalid_value():
 
 
 def test_width_relaunch_on_overflow(monkeypatch):
-    """A stream longer than the width hint is relaunched once at the exact
-    width; the result equals a direct launch at that width."""
-    monkeypatch.setattr(tcd, "_w_hints", {})
-    cfg = tiled_config_for_depth(PixelDepth.EIGHT)
+    """A stream longer than the width hint is relaunched once, by the
+    finish half, at the exact width: its words equal a direct launch at
+    that width and decode to the tiles, the container equals an unforced
+    call's, and the hint learns the width."""
     rng = np.random.default_rng(7)
-    checker = (np.arange(16)[:, None] + np.arange(16)[None, :]) % 2 == 1
-    img = np.where(checker, rng.integers(240, 256, (16, 16)),
-                   rng.integers(0, 16, (16, 16))).astype(np.uint8)
-    tiles = tiling.image_tiles(upload_image(img, CPU)[None], 8, 8)
-    prior = torch.full((1, 6, 6), 1 << 20, dtype=torch.int32)
-    prior[..., 0] = 0  # hold every bucket at k = 0: ~230 bits a pixel
-    hint = tcd.width_hint(cfg, 64, 1)
-    words, bits = tiling.encode_words(tiles, prior, cfg, 8, 8)
-    assert int(bits.max()) > 32 * hint
-    assert words.shape[1] == tcd.bucket_words(-(-int(bits.max()) // 32))
-    direct = tcd.encode_tiles(tiles, cfg, 8, 8, words.shape[1], prior)
-    assert torch.equal(direct[0], words) and torch.equal(direct[1], bits)
-    assert torch.equal(tcd.decode_tiles(words, cfg, 8, 8, 1, prior), tiles)
+    checker = (np.arange(32)[:, None] + np.arange(32)[None, :]) % 2 == 1
+    img = np.where(checker, rng.integers(240, 256, (32, 32)),
+                   rng.integers(0, 16, (32, 32))).astype(np.uint8)
+    want = compress_tiled_bytes(img, TileConfig(32, 32), device="cpu")
+    hd = header_for_array(img)
+    cfg = tiling.tiled_config_for_depth(hd.pixel_depth)
+    key = (32 * 32, 1, hd.pixel_depth)
+    # As if the widest stream seen had been one word: the hint is the
+    # smallest bucket, 64 words (2 bits a pixel).
+    monkeypatch.setattr(tcd, "_w_hints", {key: 1})
+    p = tiling.encode_dispatch([img], [hd], 32, 32, True, CPU)
+    assert p.W == 64
+    assert tiling.encode_finish(p) == [want]
+    max_bits = int(p.bits.max())
+    assert max_bits > 32 * 64
+    assert p.W == tcd.bucket_words(-(-max_bits // 32)) == p.words.shape[1]
+    direct = tcd.encode_tiles(p.tiles, cfg, 32, 32, p.W, p.prior)
+    assert torch.equal(direct[0], p.words) and torch.equal(direct[1], p.bits)
+    assert torch.equal(tcd.decode_tiles(p.words, cfg, 32, 32, 1, p.prior), p.tiles)
+    assert tcd._w_hints[key] == -(-max_bits // 32)
 
 
 @pytest.mark.parametrize("shape,depth_max", [((13, 9, 3), 255), ((16, 24), 65535)])
@@ -193,7 +201,7 @@ def test_word_rows_match_reference():
     starts = np.concatenate([[0], np.cumsum(lens)[:-1]])
     want = ref._payload_to_columns(payload, starts, lens, 4)
     got = tiling.word_rows(torch.frombuffer(bytearray(payload), dtype=torch.uint8),
-                           lens, 4)
+                           torch.from_numpy(lens), 4)
     assert np.array_equal(got.numpy(), want.view(np.int32))
 
 
@@ -204,9 +212,15 @@ def test_aligned_payload_matches_reference_compaction():
     used = (bits + 31) // 32
     words[np.arange(8)[None, :] >= used[:, None]] = 0
     tb = (bits + 7) // 8
-    pay = tiling.aligned_payload(torch.from_numpy(words), torch.from_numpy(bits))
-    got = flct.strip_word_alignment(pay.numpy(), tb)
-    assert got == ref._columns_to_payload(words.view(np.uint32), tb)
+    want = ref._columns_to_payload(words.view(np.uint32), tb)
+    # A capacity of the exact word count, and one with room to spare (zero
+    # past the count).
+    for cap in (int(used.sum()), int(used.sum()) + 5):
+        pay, total = tiling.aligned_payload(
+            torch.from_numpy(words), torch.from_numpy(bits), cap)
+        assert int(total) == int(used.sum()) and pay.numel() == 4 * cap
+        assert flct.strip_word_alignment(pay.numpy(), tb) == want
+        assert not pay[4 * int(used.sum()):].any()
 
 
 def test_to_host_round_trips_mixed_dtypes():
