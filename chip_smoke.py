@@ -62,13 +62,30 @@ Phases, one line each, any failure exits non-zero and prints no result:
    then the long row: one 4096x4096 tile of uniform gray16 noise, whose
    stream passes 2^31 bits, encoded on the card, byte-identical to the
    native codec, decoded exactly through K2's 64-bit-position
-   instantiation (its own counter).
+   instantiation (its own counter);
+8. the sharded paths and the CLIs: K1 and K2 against their plain versions
+   at the shapes the sharded paths give them on one 4096^2 gray8 image at
+   tile 64 (its 4096 tiles as one shard and as two of 2048), exact; the
+   mesh (make_tile_mesh(), the card, and (cuda:0, cuda:0)) on phase 3's
+   classes image by image at tile 32 and on that image, through
+   encode_tiled_sharded / decode_tiled_sharded; two gloo ranks sharing cuda:0 (worker processes
+   of this script, ``--worker``) through encode_corpus_multihost on the
+   gray8 class and encode_tiled_multihost / decode_tiled_multihost on the
+   4096^2 image, then one NCCL rank at world size 1 on one 512^2 image:
+   containers byte-identical to the one-device calls and the native
+   codec, exact decodes, K1 and K2 launched in every shard and rank, ms
+   beside the one-device calls (the gloo decode also split into its
+   gather and its assembly); then cfelics / dfelics (FLCS, and FLCT at
+   tile 64) on 512^2 gray8 and rgb16 TIFFs, vfelics --export and bfelics
+   (.fel and .qoi rows) in this process on --device cuda, against the
+   native codec, K1-K4 launched.
 
 No module of JAX or of the JAX package felics_tpu is imported; the native
 codec is reached through felics_tpu_torch.native (native/build.py builds
 it). Each kernel's entry in the kernels line carries its time and its
 plain version's at the main path's shape, its bound (bytes at 3.35 TB/s
-against operations), its launches on the main path and per call.
+against operations), its launches on the main path and per call, and its
+launches on phase 8's sharded paths and CLIs.
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.
 """
@@ -93,6 +110,11 @@ CORRUPT_SECONDS = 60.0  # limit for one corrupt-container decode
 STREAM_CHUNKS = {"gray8": 3, "rgb8": 2, "gray16": 2}
 STREAM_DEPTH = 2
 LONG_SIDE = 4096
+# Phase 8: the one large image the sharded paths take (4096 tiles of 64x64)
+# and the limit on each worker process of the process groups.
+BIG_SIDE = 4096
+BIG_TILE = 64
+WORKER_SECONDS = 240
 # H100 SXM peaks (NVIDIA's data sheet, at a 700 W limit): HBM3 bytes a
 # second, and float32 operations a second outside the tensor cores, the
 # nearest entry to the kernels' 32-bit integer operations.
@@ -472,6 +494,361 @@ def flct_long_row(np, torch, dev, card) -> dict:
            "native_bytes_identical": True, "exact_round_trip": True}
     say("7 long row", nvidia_smi=card, **row)
     return row
+
+
+def big_image(np):
+    """Phase 8's one large image: a 4096x4096 gray8 _synth image, seed 0
+    (4096 tiles at tile 64)."""
+    return synth((BIG_SIDE, BIG_SIDE), np.uint8, 1, 6, np)[0]
+
+
+def shard_kernels(torch, dev, big, big_single) -> dict:
+    """K1 and K2 against their plain versions at the shapes the sharded
+    paths give them on the 4096^2 image: its 4096 tiles as one shard and
+    as two shards of 2048 (K2 puts 8 and 4 tiles in a block). K1 runs as a
+    shard does (shard_dispatch, shard_finish), K2 on the word rows
+    decode_shards cuts from the container; one plain run of each over all
+    the tiles, and every shard's output must equal its rows exactly.
+    Returns both errors and the plain runs' seconds."""
+    from felics_tpu_torch.format import header_for_array
+    from felics_tpu_torch.ops import tile_codec as tcd
+    from felics_tpu_torch.parallel import flct, tiling
+
+    t = BIG_TILE
+    tiles, prior, _, _, cfg = tiling.encode_prepare(
+        [big], [header_for_array(big)], t, t, True, dev)
+    nt = tiles.shape[0]
+    shards = [(0, nt), (0, nt // 2), (nt // 2, nt)]
+    done = []
+    for lo, hi in shards:
+        p = tiling.shard_dispatch(tiles[lo:hi], prior[lo:hi], cfg, t, t)
+        tiling.shard_finish(p)
+        done.append(p)
+    t0 = time.perf_counter()
+    wr, br = tcd.encode_tiles_ref(tiles, cfg, t, t, max(p.W for p in done), prior)
+    torch.cuda.synchronize()
+    enc_plain_s = time.perf_counter() - t0
+    enc_err = max(max(int((p.words.long() - wr[lo:hi, : p.W].long()).abs().max()),
+                      int((p.bits - br[lo:hi]).abs().max()),
+                      int(wr[lo:hi, p.W :].count_nonzero()))
+                  for p, (lo, hi) in zip(done, shards))
+    hd = flct.read_tiled_header(big_single)
+    rows, (prior_t,) = tiling.upload_rows(
+        hd.tile_lengths, [tiling.payload_of(big_single, hd)],
+        tiling.row_width(hd.tile_lengths), [flct.prior_from_k0(hd.k0, cfg, 1)], dev)
+    t0 = time.perf_counter()
+    dr = tcd.decode_tiles_ref(rows, cfg, t, t, 1, prior_t)
+    torch.cuda.synchronize()
+    dec_plain_s = time.perf_counter() - t0
+    dec_err = max(int((tcd.decode_tiles(rows[lo:hi], cfg, t, t, 1, prior_t).long()
+                       - dr[lo:hi].long()).abs().max()) for lo, hi in shards)
+    rt_err = int((dr.long() - tiles.long()).abs().max())
+    if enc_err or dec_err or rt_err:
+        fail(f"4096^2 shards: kernel vs plain enc_err={enc_err} dec_err={dec_err} "
+             f"round_trip_err={rt_err}")
+    row = {"shards": [hi - lo for lo, hi in shards], "W": [p.W for p in done],
+           "decode_tiles_per_block": [tcd.decode_tiles_per_block(hi - lo)
+                                      for lo, hi in shards],
+           "enc_err": enc_err, "dec_err": dec_err,
+           "encode_plain_s": enc_plain_s, "decode_plain_s": dec_plain_s}
+    say("8 shard kernels", **row)
+    return row
+
+
+def sharded_mesh(np, torch, dev, card, classes, blobs_by_class) -> dict:
+    """Phase 8, the mesh: on make_tile_mesh() (the card) and on (cuda:0,
+    cuda:0), phase 3's classes image by image at tile 32 and the 4096^2
+    image at tile 64 through encode_tiled_sharded / decode_tiled_sharded:
+    containers byte-identical to the one-device compress_tiled_bytes and to
+    the native codec, exact decodes, K1 and K2 launched at least once a
+    shard a call; ms (CUDA events, mean of 3 warm calls) beside the
+    one-device calls, after shard_kernels. Returns the K1/K2 launches of
+    the checked calls, the kernels' errors against their plain versions
+    and the 4096^2 image's one-device container."""
+    from felics_tpu_torch import compress_tiled_bytes, decompress_tiled_bytes, native
+    from felics_tpu_torch.config import TileConfig
+    from felics_tpu_torch.format import header_for_array
+    from felics_tpu_torch.ops import tile_codec as tcd
+    from felics_tpu_torch.parallel import mesh
+
+    big = big_image(np)
+    big_tc = TileConfig(BIG_TILE, BIG_TILE)
+    big_single = compress_tiled_bytes(big, big_tc, device=dev)
+    if big_single != native.compress_tiled(big, header_for_array(big), BIG_TILE, BIG_TILE):
+        fail("4096^2 gray8: the one-device container differs from the native codec")
+    kernels = shard_kernels(torch, dev, big, big_single)
+    runs = [(name, images, TileConfig(TILE, TILE), blobs_by_class[name][1])
+            for name, images in classes]
+    runs.append(("gray8 4096^2", [big], big_tc, [big_single]))
+    launches = {"encode": 0, "decode": 0}
+    for label, m in (("card", mesh.make_tile_mesh()),
+                     ("cuda:0 x2", mesh.make_tile_mesh(["cuda:0", "cuda:0"]))):
+        for name, images, tc, singles in runs:
+            enc_n = dec_n = 0
+            for i, (im, single) in enumerate(zip(images, singles)):
+                tcd.ENCODE_LAUNCHES = tcd.DECODE_LAUNCHES = 0
+                data = mesh.encode_tiled_sharded(im, m, tc)
+                out = mesh.decode_tiled_sharded(data, m)
+                enc_n, dec_n = enc_n + tcd.ENCODE_LAUNCHES, dec_n + tcd.DECODE_LAUNCHES
+                if data != single or data != compress_tiled_bytes(im, tc, device=dev):
+                    fail(f"mesh {label} {name} image {i}: container differs from the "
+                         "one-device compress_tiled_bytes and the native codec")
+                if out.dtype != im.dtype or not np.array_equal(out, im):
+                    fail(f"mesh {label} {name} image {i}: decode is not exact")
+            if min(enc_n, dec_n) < len(m) * len(images):
+                fail(f"mesh {label} {name}: K1/K2 launched {enc_n}/{dec_n} times for "
+                     f"{len(images)} images over {len(m)} shards")
+            launches["encode"] += enc_n
+            launches["decode"] += dec_n
+            ms = {
+                "sharded_encode": lambda: [mesh.encode_tiled_sharded(im, m, tc) for im in images],
+                "single_encode": lambda: [compress_tiled_bytes(im, tc, device=dev)
+                                          for im in images],
+                "sharded_decode": lambda: [mesh.decode_tiled_sharded(b, m) for b in singles],
+                "single_decode": lambda: [decompress_tiled_bytes(b, device=dev)
+                                          for b in singles],
+            }
+            ms = {k: call_ms(torch, fn, 3)[0] for k, fn in ms.items()}
+            px = sum(im.shape[0] * im.shape[1] for im in images)
+            say("8 mesh", nvidia_smi=card, mesh=label, shards=len(m), cls=name,
+                images=len(images), tile=tc.tile_h, k1_launches=enc_n, k2_launches=dec_n,
+                **{f"{k}_ms": v for k, v in ms.items()},
+                sharded_combined_mpx_s=2 * px / (ms["sharded_encode"] + ms["sharded_decode"]) / 1e3,
+                single_combined_mpx_s=2 * px / (ms["single_encode"] + ms["single_decode"]) / 1e3,
+                bytes_equal_single_and_native=True, exact_round_trip=True)
+    return {"launches": launches, "big_single": big_single,
+            "errs": {"encode": kernels["enc_err"], "decode": kernels["dec_err"]}}
+
+
+def group_worker(backend: str, address: str, world: int, rank: int, out_dir: str) -> None:
+    """One rank of phase 8's process groups (``--worker``): joins the group,
+    runs the sharded calls on cuda:0 (gloo: the gray8 class through
+    encode_corpus_multihost, then the 4096^2 image through
+    encode_tiled_multihost and decode_tiled_multihost; NCCL: one 512^2
+    image both ways), checks its decodes, writes its containers to
+    ``out_dir`` and prints one JSON line: launches and ms (CUDA events,
+    mean of 3 warm calls) of each call, and under gloo the decode's gather
+    and assembly timed alone."""
+    np, torch = need_gpu_and_repo()
+    import torch.distributed as dist
+
+    from felics_tpu_torch.config import TileConfig
+    from felics_tpu_torch.ops import tile_codec as tcd
+    from felics_tpu_torch.parallel import flct, mesh, multihost, tiling
+
+    dev = "cuda:0"
+    multihost.init_process(address, world, rank, backend=backend)
+    gray8 = flct_classes(np)[0][1]
+    if backend == "gloo":
+        big = big_image(np)
+        calls = [
+            ("corpus", lambda: multihost.encode_corpus_multihost(
+                gray8, TileConfig(TILE, TILE), device=dev)),
+            ("big_encode", lambda: multihost.encode_tiled_multihost(
+                big, TileConfig(BIG_TILE, BIG_TILE), device=dev)),
+        ]
+        decode_of, want = "big_encode", big
+    else:
+        calls = [("image_encode", lambda: multihost.encode_tiled_multihost(
+            gray8[0], TileConfig(TILE, TILE), device=dev))]
+        decode_of, want = "image_encode", gray8[0]
+    row, results = {"backend": backend, "rank": rank, "world": world}, {}
+    for name, fn in calls:
+        tcd.ENCODE_LAUNCHES = 0
+        results[name] = fn()
+        row[f"{name}_k1_launches"] = tcd.ENCODE_LAUNCHES
+        row[f"{name}_ms"] = call_ms(torch, fn, 3)[0]
+    blob = results[decode_of]
+    tcd.DECODE_LAUNCHES = 0
+    out = multihost.decode_tiled_multihost(blob, device=dev)
+    row["decode_k2_launches"] = tcd.DECODE_LAUNCHES
+    if out.dtype != want.dtype or not np.array_equal(out, want):
+        fail(f"{backend} rank {rank}: decode_tiled_multihost is not exact")
+    row["decode_ms"] = call_ms(
+        torch, lambda: multihost.decode_tiled_multihost(blob, device=dev), 3)[0]
+    if backend == "gloo":
+        # The decode's two steps after K2, alone: the gather of this image's
+        # narrowed planes (device -> host -> gloo -> device) and the
+        # assembly on the card.
+        pm = multihost.global_tile_mesh(dev)
+        hd = flct.read_tiled_header(blob)
+        planes = torch.zeros((-(-hd.n_tiles // world), 1, BIG_TILE * BIG_TILE),
+                             dtype=torch.int32, device=dev)
+        row["decode_gather_ms"] = call_ms(
+            torch, lambda: pm.gather_planes([mesh.narrow_planes(planes, hd)]), 3)[0]
+        bufs = pm.gather_planes([mesh.narrow_planes(planes, hd)]).to(torch.int32)
+        row["decode_assemble_ms"] = call_ms(torch, lambda: tiling.decode_finish(
+            tiling.assemble_dispatch([hd], bufs[: hd.n_tiles])), 3)[0]
+    row["exact_round_trip"] = True
+    blobs = results.get("corpus", []) + [blob]
+    for i, b in enumerate(blobs):
+        with open(os.path.join(out_dir, f"{backend}{rank}_{i}.fel"), "wb") as f:
+            f.write(b)
+    dist.destroy_process_group()
+    print(json.dumps(row), flush=True)
+
+
+def run_group(backend: str, world: int, out_dir: str) -> list:
+    """Start ``world`` ranks of group_worker and wait for them (each within
+    WORKER_SECONDS); fail if any fails or times out. Their JSON rows."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        address = f"127.0.0.1:{s.getsockname()[1]}"
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--worker", backend, address,
+         str(world), str(rank), out_dir],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, cwd=REPO)
+        for rank in range(world)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=WORKER_SECONDS)[0])
+    except subprocess.TimeoutExpired:
+        fail(f"a {backend} worker ran past {WORKER_SECONDS} s")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    rows = []
+    for rank, (p, log) in enumerate(zip(procs, logs)):
+        if p.returncode != 0:
+            fail(f"{backend} worker {rank} exited {p.returncode}:\n{log[-3000:]}")
+        rows.append(json.loads(log.strip().splitlines()[-1]))
+    return rows
+
+
+def process_groups(np, card, gray8_blobs, big_single) -> dict:
+    """Phase 8, process groups: two gloo ranks sharing cuda:0 (the corpus
+    and the 4096^2 image), then one NCCL rank at world size 1 (one 512^2
+    image). Every rank's containers must equal the other's and this
+    process's compress_tiled_batch / compress_tiled_bytes, and every rank
+    decodes exactly. Returns the ranks' K1/K2 launches, summed."""
+    import shutil
+    import tempfile
+
+    out_dir = tempfile.mkdtemp(prefix="felics_groups_")
+    try:
+        gloo = run_group("gloo", 2, out_dir)
+        nccl = run_group("nccl", 1, out_dir)
+
+        def read(name):
+            with open(os.path.join(out_dir, name), "rb") as f:
+                return f.read()
+
+        want = list(gray8_blobs) + [big_single]
+        for rank in range(2):
+            got = [read(f"gloo{rank}_{i}.fel") for i in range(len(want))]
+            if got != want:
+                fail(f"gloo rank {rank}: containers differ from compress_tiled_batch / "
+                     "compress_tiled_bytes")
+        if read("nccl0_0.fel") != gray8_blobs[0]:
+            fail("nccl rank 0: container differs from compress_tiled_bytes")
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    launches = {"encode": 0, "decode": 0}
+    for row in gloo + nccl:
+        k1 = [v for k, v in row.items() if k.endswith("k1_launches")]
+        if not (row["decode_k2_launches"] and all(k1)):
+            fail(f"{row['backend']} rank {row['rank']} did not launch K1 and K2: {row}")
+        launches["encode"] += sum(k1)
+        launches["decode"] += row["decode_k2_launches"]
+        say("8 process group", nvidia_smi=card, **row, bytes_equal_parent=True)
+    return launches
+
+
+def cli_phase(np, card, images) -> dict:
+    """Phase 8, the CLIs in this process on --device cuda: cfelics and
+    dfelics on a 512^2 gray8 TIFF and a 512^2x3 rgb16 TIFF written by
+    save_image, FLCS and --container flct --tile-size 64 (.fel bytes equal
+    to the native codec's, decoded files exact), vfelics --export, and
+    bfelics on 3 gray8 512^2 TIFFs (.fel and .qoi rows). Host clock per
+    call. Returns the K1-K4 launches of the CLI calls."""
+    import contextlib
+    import io
+    import shutil
+    import tempfile
+
+    from felics_tpu_torch import native
+    from felics_tpu_torch.cli import bfelics, cfelics, dfelics, vfelics
+    from felics_tpu_torch.core import codec
+    from felics_tpu_torch.format import header_for_array
+    from felics_tpu_torch.io.images import load_image, save_image
+    from felics_tpu_torch.ops import kscan as flcs_ks
+    from felics_tpu_torch.ops import tile_codec as tcd
+
+    cuda = ["--device", "cuda"]
+    tmp = tempfile.mkdtemp(prefix="felics_cli_")
+
+    def run(main, argv):
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = main(argv)
+        secs = time.perf_counter() - t0
+        if rc != 0:
+            fail(f"{main.__module__} {argv}: exit code {rc}: {buf.getvalue()[-2000:]}")
+        return secs, buf.getvalue()
+
+    flcs_ks.LAUNCHES = codec.DECODE_LAUNCHES = 0
+    tcd.ENCODE_LAUNCHES = tcd.DECODE_LAUNCHES = 0
+    try:
+        rgb16 = synth((512, 512, 3), np.uint16, 1, 800, np)[0]
+        cases = [("gray8", images[0], ".png"), ("rgb16", rgb16, ".tiff")]
+        secs = {}
+        for name, im, ext in cases:
+            src = os.path.join(tmp, f"{name}.tiff")
+            save_image(src, im)
+            if not np.array_equal(load_image(src), im):
+                fail(f"cli {name}: the TIFF save_image wrote does not load back")
+            hd = header_for_array(im)
+            for container, flags in (("flcs", []), ("flct", ["--container", "flct",
+                                                             "--tile-size", "64"])):
+                fel = os.path.join(tmp, f"{name}_{container}.fel")
+                out = os.path.join(tmp, f"{name}_{container}{ext}")
+                secs[f"{name}_{container}_cfelics_s"] = run(
+                    cfelics.main, ["-i", src, "-o", fel, *flags, *cuda])[0]
+                with open(fel, "rb") as f:
+                    blob = f.read()
+                want = (native.compress(im, hd) if container == "flcs"
+                        else native.compress_tiled(im, hd, 64, 64))
+                if blob != want:
+                    fail(f"cli {name} {container}: .fel differs from the native codec")
+                secs[f"{name}_{container}_dfelics_s"] = run(
+                    dfelics.main, ["-i", fel, "-o", out, *cuda])[0]
+                got = load_image(out)
+                if got.dtype != im.dtype or not np.array_equal(got, im):
+                    fail(f"cli {name} {container}: dfelics' file is not exact")
+        png = os.path.join(tmp, "view.png")
+        secs["vfelics_s"], printed = run(
+            vfelics.main, [os.path.join(tmp, "gray8_flcs.fel"), "--export", png, *cuda])
+        if not np.array_equal(load_image(png), images[0]) or "512x512" not in printed:
+            fail("cli vfelics --export: the PNG is not the image")
+        corpus = os.path.join(tmp, "corpus")
+        os.makedirs(corpus)
+        for i, im in enumerate(images[:3]):
+            save_image(os.path.join(corpus, f"im{i}.tiff"), im)
+        secs["bfelics_s"], printed = run(
+            bfelics.main, ["--corpus", corpus, "--out", os.path.join(tmp, "bench"), *cuda])
+        rows = [ln.strip() for ln in printed.splitlines() if ": enc" in ln]
+        if not any(r.startswith(".fel") for r in rows) or not any(
+                r.startswith(".qoi") for r in rows):
+            fail(f"cli bfelics: no .fel and .qoi rows in {printed!r}")
+        for i, im in enumerate(images[:3]):
+            with open(os.path.join(tmp, "bench", "to_felics", f"im{i}.fel"), "rb") as f:
+                if f.read() != native.compress(im, header_for_array(im)):
+                    fail(f"cli bfelics: im{i}.fel differs from the native codec")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    launches = {"kscan": flcs_ks.LAUNCHES, "flcs_decode": codec.DECODE_LAUNCHES,
+                "encode": tcd.ENCODE_LAUNCHES, "decode": tcd.DECODE_LAUNCHES}
+    if not all(launches.values()):
+        fail(f"the CLIs did not launch all four kernels: {launches}")
+    say("8 cli", nvidia_smi=card, **secs, bfelics_rows=rows, launches=launches,
+        native_bytes_identical=True, exact_round_trip=True)
+    return launches
 
 
 def profiled(torch, fn, kernel: str):
@@ -1032,6 +1409,16 @@ def main() -> None:
     flct_isolate(np, dev, *blobs_by_class["gray8"])
     long_row = flct_long_row(np, torch, dev, card)
 
+    # ---- phase 8: the sharded paths and the CLIs ---------------------------
+    t8 = time.perf_counter()
+    meshed = sharded_mesh(np, torch, dev, card, classes, blobs_by_class)
+    groups = process_groups(np, card, blobs_by_class["gray8"][1], meshed["big_single"])
+    sharded = {k: meshed["launches"][k] + groups[k] for k in ("encode", "decode")}
+    errs = {k: max(errs[k], meshed["errs"][k]) for k in errs}
+    cli = cli_phase(np, card, classes[0][1])
+    say("8 done", seconds=time.perf_counter() - t8, sharded_launches=sharded,
+        mesh_launches=meshed["launches"], group_launches=groups, cli_launches=cli)
+
     foreign =[m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "felics_tpu")]
     if foreign:
         fail(f"modules of JAX or of the JAX package were imported: {foreign[:5]}")
@@ -1060,7 +1447,8 @@ def main() -> None:
               kernel_only_ms_by_class=flct_by_class("encode_kernel_ms"),
               plain_ms_by_class=flct_by_class("encode_plain_ms"),
               bound_ms_by_class={c: r["encode_bound"][0] for c, r in kt.items()},
-              stream_launches=stream_launches["encode"]),
+              stream_launches=stream_launches["encode"],
+              sharded_launches=sharded["encode"], cli_launches=cli["encode"]),
         entry("flct_decode", "felics_tpu/ops/pallas_codec.py:805", launches["decode"],
               per_call["decode"], errs["decode"], g8k["decode_ms"],
               g8k["decode_plain_ms"], g8k["decode_bound"], shape=flct_shape,
@@ -1070,6 +1458,7 @@ def main() -> None:
               plain_ms_by_class=flct_by_class("decode_plain_ms"),
               bound_ms_by_class={c: r["decode_bound"][0] for c, r in kt.items()},
               stream_launches=stream_launches["decode"],
+              sharded_launches=sharded["decode"], cli_launches=cli["decode"],
               # the 64-bit-position instantiation, on the long row
               wide_launches=long_row["decode_wide_launches"],
               wide_decode_s=long_row["decode_s"], wide_kernel_ms=long_row["k2_kernel_ms"]),
@@ -1079,14 +1468,16 @@ def main() -> None:
               shape="gray8 4x512^2", full_shape_ms_by_class=by_class["kscan_ms"],
               bound_ms_by_class={c: r["kscan_bound"][0] for c, r in full.items()},
               small_shape="gray8 4x64^2", small_ms=flcs_timing["kscan"][0],
-              small_plain_ms=flcs_timing["kscan"][1]),
+              small_plain_ms=flcs_timing["kscan"][1],
+              sharded_launches=0, cli_launches=cli["kscan"]),
         entry("flcs_decode", "felics_tpu/core/jax_codec.py:303", flcs_launches["decode"],
               flcs_per_call["decode"], flcs_errs["decode"], full["gray8"]["decode_ms"],
               full["gray8"]["decode_plain_ms"], full["gray8"]["decode_bound"],
               shape="gray8 4x512^2", full_shape_ms_by_class=by_class["decode_ms"],
               bound_ms_by_class={c: r["decode_bound"][0] for c, r in full.items()},
               table_zero_ms=zero_ms, small_shape="gray8 4x64^2",
-              small_ms=flcs_timing["decode"][0], small_plain_ms=flcs_timing["decode"][1]),
+              small_ms=flcs_timing["decode"][0], small_plain_ms=flcs_timing["decode"][1],
+              sharded_launches=0, cli_launches=cli["flcs_decode"]),
     ]
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
@@ -1275,5 +1666,8 @@ if __name__ == "__main__":
         flct_only()
     elif sys.argv[1:] == ["--stream"]:
         stream_trace()
+    elif sys.argv[1:2] == ["--worker"]:  # a rank of phase 8's process groups
+        backend, address, world, rank, out_dir = sys.argv[2:]
+        group_worker(backend, address, int(world), int(rank), out_dir)
     else:
         main()

@@ -15,6 +15,7 @@ CPU the same calls run without streams or pinning.
 
 from __future__ import annotations
 
+import contextlib
 from typing import List, Sequence, Tuple
 
 import numpy as np
@@ -48,6 +49,16 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
+def on_device(device: torch.device):
+    """A context in which ``device`` is the current CUDA device, so that the
+    streams, events and copies the helpers here use are that device's; a
+    no-op for the CPU. A chain dispatched to a device that is not the
+    current one runs under it."""
+    if device.type == "cuda":
+        return torch.cuda.device(device)
+    return contextlib.nullcontext()
+
+
 def stage(arrays: Sequence[np.ndarray], device: torch.device) -> Tuple[torch.Tensor, List[int]]:
     """numpy arrays -> one uint8 buffer on ``device`` holding their bytes,
     and each array's byte offset in it: one host staging buffer, one copy.
@@ -65,15 +76,23 @@ def stage(arrays: Sequence[np.ndarray], device: torch.device) -> Tuple[torch.Ten
     return host.to(device, non_blocking=True), offsets
 
 
+def staged_views(
+    buf: torch.Tensor, offsets: Sequence[int], arrays: Sequence[np.ndarray]
+) -> List[torch.Tensor]:
+    """The tensors of ``arrays``' dtypes and shapes at ``offsets`` of a
+    buffer ``stage`` filled (uint16 as int16 bit patterns)."""
+    return [
+        buf[off : off + a.nbytes].view(_TORCH_DTYPES[a.dtype]).reshape(a.shape)
+        for a, off in zip(arrays, offsets)
+    ]
+
+
 def upload(arrays: Sequence[np.ndarray], device: torch.device) -> List[torch.Tensor]:
     """numpy arrays -> tensors of their shapes on ``device`` (views of one
     staged buffer; uint16 arrives as int16 bit patterns)."""
     arrays = [np.asarray(a) for a in arrays]
     buf, offsets = stage(arrays, device)
-    return [
-        buf[off : off + a.nbytes].view(_TORCH_DTYPES[a.dtype]).reshape(a.shape)
-        for a, off in zip(arrays, offsets)
-    ]
+    return staged_views(buf, offsets, arrays)
 
 
 def as_pixels(t: torch.Tensor) -> torch.Tensor:

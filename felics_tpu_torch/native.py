@@ -1,11 +1,13 @@
-"""ctypes binding of the repository's native C++ codec, the port's comparator.
+"""ctypes binding of the repository's native C++ codec, the port's comparator,
+and of its QOI codec.
 
-Counterpart: the ``compress``, ``decompress``, ``compress_tiled`` and
-``decompress_tiled`` calls of felics_tpu/native/runtime.py. The library is
+Counterpart: the ``compress``, ``decompress``, ``compress_tiled``,
+``decompress_tiled``, ``qoi_available``, ``qoi_encode`` and ``qoi_decode``
+calls of felics_tpu/native/runtime.py. The library is
 ``native/build/libfelics_core.so``, built by ``python native/build.py`` from
-native/src/felics_core.cpp; the port
-itself never calls it, ``chip_smoke.py`` holds the port's containers and
-images against it.
+native/src/felics_core.cpp. The codec calls of the port never reach it:
+``chip_smoke.py`` holds the port's containers and images against it, and
+``bfelics`` takes its QOI column from it.
 
 C ABI (0 = ok; a negative code names the error class):
     int fel_compress(const int32_t* pixels, uint32_t width, uint32_t height,
@@ -19,6 +21,10 @@ C ABI (0 = ok; a negative code names the error class):
     int fel_decompress_tiled(const uint8_t* data, size_t len, int n_threads,
                              int32_t** out_pixels, uint32_t* width,
                              uint32_t* height, int* color_type, int* pixel_depth);
+    int fel_qoi_encode(const uint8_t* pixels, uint32_t width, uint32_t height,
+                       int channels, uint8_t** out, size_t* out_len);
+    int fel_qoi_decode(const uint8_t* data, size_t len, uint8_t** out,
+                       uint32_t* width, uint32_t* height, int* channels);
     void fel_free(void* ptr);
 """
 
@@ -77,6 +83,16 @@ def _load() -> ctypes.CDLL:
             u8p, size, i32, ctypes.POINTER(i32p), ctypes.POINTER(u32),
             ctypes.POINTER(u32), ctypes.POINTER(i32), ctypes.POINTER(i32),
         ]
+        if hasattr(lib, "fel_qoi_encode"):  # a library built before QOI lacks it
+            lib.fel_qoi_encode.restype = i32
+            lib.fel_qoi_encode.argtypes = [
+                u8p, u32, u32, i32, ctypes.POINTER(u8p), ctypes.POINTER(size),
+            ]
+            lib.fel_qoi_decode.restype = i32
+            lib.fel_qoi_decode.argtypes = [
+                u8p, size, ctypes.POINTER(u8p), ctypes.POINTER(u32),
+                ctypes.POINTER(u32), ctypes.POINTER(i32),
+            ]
         lib.fel_free.restype = None
         lib.fel_free.argtypes = [ctypes.c_void_p]
         _lib = lib
@@ -158,3 +174,48 @@ def _decode(data: bytes, call) -> np.ndarray:
     dtype = np.uint8 if depth.value == int(PixelDepth.EIGHT) else np.uint16
     shape = (height.value, width.value) + ((3,) if nchan == 3 else ())
     return arr.astype(dtype).reshape(shape)
+
+
+def qoi_available() -> bool:
+    """Whether the native library is built and has the QOI codec."""
+    return LIB_PATH.exists() and hasattr(_load(), "fel_qoi_encode")
+
+
+def _qoi_lib() -> ctypes.CDLL:
+    if not qoi_available():
+        raise RuntimeError("native library with QOI not built; run python native/build.py")
+    return _load()
+
+
+def qoi_encode(image: np.ndarray) -> bytes:
+    """QOI file of an (H, W, 3|4) uint8 image (gray callers expand to RGB
+    first, as the reference's corpus benchmark does)."""
+    lib = _qoi_lib()
+    if image.ndim != 3 or image.shape[2] not in (3, 4) or image.dtype != np.uint8:
+        raise ValueError("QOI input must be (H, W, 3|4) uint8")
+    h, w, ch = image.shape
+    flat = np.ascontiguousarray(image.reshape(-1))
+    out_ptr, out_len = ctypes.POINTER(ctypes.c_uint8)(), ctypes.c_size_t()
+    _check(lib.fel_qoi_encode(
+        flat.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)), w, h, ch,
+        ctypes.byref(out_ptr), ctypes.byref(out_len),
+    ))
+    return _take_bytes(lib, out_ptr, out_len)
+
+
+def qoi_decode(data: bytes) -> np.ndarray:
+    """(H, W, channels) uint8 image of a QOI file."""
+    lib = _qoi_lib()
+    buf = (ctypes.c_uint8 * len(data)).from_buffer_copy(data)
+    out_ptr = ctypes.POINTER(ctypes.c_uint8)()
+    w, h, ch = ctypes.c_uint32(), ctypes.c_uint32(), ctypes.c_int()
+    _check(lib.fel_qoi_decode(
+        buf, len(data), ctypes.byref(out_ptr), ctypes.byref(w), ctypes.byref(h),
+        ctypes.byref(ch),
+    ))
+    try:
+        n = w.value * h.value * ch.value
+        arr = np.ctypeslib.as_array(out_ptr, shape=(n,)).copy()
+    finally:
+        lib.fel_free(out_ptr)
+    return arr.reshape(h.value, w.value, ch.value)

@@ -40,9 +40,10 @@ def _check_on_error(on_error: str) -> bool:
 # ---------------------------------------------------------------------------
 
 
-def _encode_dispatch(images: Sequence[np.ndarray], tile: TileConfig, dev):
-    """Containers of the zero-area members, and every geometry group's
-    encode dispatched: (out, [(member indices, pending)])."""
+def geometry_groups(images: Sequence[np.ndarray], tile: TileConfig):
+    """(headers, out holding the containers of the zero-area members and
+    None elsewhere, {(th, tw, color, depth): member indices} in the order
+    the members come)."""
     headers = [header_for_array(im) for im in images]
     out: List[Optional[bytes]] = [None] * len(images)
     groups: Dict[Tuple, List[int]] = {}
@@ -53,6 +54,13 @@ def _encode_dispatch(images: Sequence[np.ndarray], tile: TileConfig, dev):
         th, tw = flct.clamped_tile_dims(hd.height, hd.width, tile)
         key = (th, tw, hd.color_type, hd.pixel_depth)
         groups.setdefault(key, []).append(i)
+    return headers, out, groups
+
+
+def _encode_dispatch(images: Sequence[np.ndarray], tile: TileConfig, dev):
+    """Containers of the zero-area members, and every geometry group's
+    encode dispatched: (out, [(member indices, pending)])."""
+    headers, out, groups = geometry_groups(images, tile)
     pending = [
         (idx, tiling.encode_dispatch(
             [images[i] for i in idx], [headers[i] for i in idx], th, tw, True, dev))

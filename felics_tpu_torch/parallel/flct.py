@@ -169,13 +169,14 @@ def clamped_tile_dims(h: int, w: int, tile: TileConfig) -> Tuple[int, int]:
 
 def strip_word_alignment(pay_np: np.ndarray, tile_bytes: np.ndarray) -> bytes:
     """Drop the <= 3 pad bytes that end each tile of a word-aligned payload,
-    giving the exact concatenation of the tiles' byte streams."""
+    and anything past the last tile, giving the exact concatenation of the
+    tiles' byte streams."""
     tb = np.asarray(tile_bytes, np.int64)
     padded = ((tb + 3) // 4) * 4
     pads = padded - tb
     n_pads = int(pads.sum())
     if n_pads == 0:
-        return pay_np.tobytes()
+        return pay_np[: int(padded.sum())].tobytes()
     ends = np.cumsum(padded)
     base = np.repeat(ends - pads, pads)
     off = np.arange(n_pads) - np.repeat(np.cumsum(pads) - pads, pads)

@@ -21,6 +21,13 @@ back the images with a validity flag each. ``*_group`` runs the two halves
 back to back; the batched and streamed calls in ``batch.py`` interleave
 them. Container bytes do not depend on the hints.
 
+The halves are built from pieces the sharded paths (``mesh.py``,
+``multihost.py``) run on slices of tiles: ``encode_prepare`` (upload,
+tiles, k0/prior), ``shard_dispatch`` / ``shard_finish`` (from tiles and
+prior on a device to the tiles' byte streams, relaunch and recompaction
+included), ``pack_containers``; ``upload_rows`` (payload to word rows on
+a device) and ``assemble_dispatch`` (planes to images and flags).
+
 Every function takes ``device``; nothing falls back to another engine or to
 the CPU. The k0 sums are int64 at both depths, so the reference's 16-bit
 hi/lo split and its ``k0_device_exact`` gate have no counterpart here.
@@ -38,7 +45,8 @@ from felics_tpu_torch import errors
 from felics_tpu_torch.config import CodingConfig, TileConfig, tiled_config_for_depth
 from felics_tpu_torch.core.color import rgb_to_ycocg, ycocg_to_rgb
 from felics_tpu_torch.device import (
-    HostCopy, as_pixels, neighbours, resolve_device, stage, upload,
+    HostCopy, as_pixels, neighbours, on_device, resolve_device, stage,
+    staged_views, upload,
 )
 from felics_tpu_torch.format import ColorType, Header, PixelDepth, header_for_array
 from felics_tpu_torch.ops import tile_codec
@@ -160,36 +168,16 @@ def aligned_payload(words: torch.Tensor, bits: torch.Tensor, cap: int):
     return words_to_bytes(out), ends[-1:]
 
 
-@dataclass
-class EncodePending:
-    """A group's encode chain in flight: what finish needs to wait on it,
-    redo its width or compaction, and pack its containers. After finish,
-    ``W``, ``words`` and ``bits`` are those the containers were packed from
-    (the relaunch's when there was one)."""
-
-    headers: List[Header]
-    counts: List[int]
-    th: int
-    tw: int
-    k_prior: bool
-    cfg: CodingConfig
-    tiles: torch.Tensor
-    prior: torch.Tensor
-    W: int
-    words: torch.Tensor
-    bits: torch.Tensor
-    cap: int
-    result: HostCopy  # bits, k0, used word count, payload bytes
-
-
-def encode_dispatch(
+def encode_prepare(
     images: Sequence[np.ndarray], headers: Sequence[Header], th: int, tw: int,
     k_prior: bool, device: torch.device,
-) -> EncodePending:
-    """Enqueue the encode chain of same-geometry images (same tile dims,
-    channel count and depth) on the current stream: one staged upload, one
-    k0 pass, one encode launch at the width hint, the compaction and one
-    copy to the host. Never waits on the device."""
+):
+    """The encode chain up to the kernel, for same-geometry images (same
+    tile dims, channel count and depth), enqueued on ``device``'s current
+    stream: one staged upload, the tiles, and one k0 pass. Returns (tiles
+    (nt, C, t), prior (nt, C, nb, K) per tile, or (C, nb, K) zeros without
+    ``k_prior``, k0 (n_imgs, C, nb), each image's tile count, cfg). Never
+    waits on the device."""
     cfg = tiled_config_for_depth(headers[0].pixel_depth)
     c = headers[0].num_channels
     nb, K = tile_codec.num_buckets(cfg), cfg.num_k
@@ -204,46 +192,120 @@ def encode_dispatch(
     else:
         k0 = torch.zeros((len(images), c, nb), dtype=torch.int32, device=device)
         prior = torch.zeros((c, nb, K), dtype=torch.int32, device=device)
-    nt, _, t = tiles.shape
+    return tiles, prior, k0, counts, cfg
+
+
+@dataclass
+class ShardPending:
+    """The encode chain of a set of tiles in flight, from the kernel to the
+    copy to the host: what finish needs to wait on it and redo its width or
+    compaction. After finish, ``W``, ``words`` and ``bits`` are those the
+    payload was compacted from (the relaunch's when there was one)."""
+
+    cfg: CodingConfig
+    th: int
+    tw: int
+    tiles: torch.Tensor
+    prior: torch.Tensor
+    W: int
+    words: torch.Tensor
+    bits: torch.Tensor
+    cap: int
+    result: HostCopy  # bits, used word count, payload bytes, then the extras
+
+
+@dataclass
+class EncodePending(ShardPending):
+    """A group's encode chain in flight: its one shard (every tile of the
+    group; its one extra is k0) and what finish needs to pack the
+    containers."""
+
+    headers: List[Header]
+    counts: List[int]
+    k_prior: bool
+
+
+def shard_dispatch(
+    tiles: torch.Tensor, prior: torch.Tensor, cfg: CodingConfig, th: int, tw: int,
+    *extra: torch.Tensor,
+) -> ShardPending:
+    """Enqueue the encode chain of tiles and their prior on their device's
+    current stream: one encode launch at the width hint, the compaction
+    into a buffer of hinted capacity and one copy to the host of the bit
+    counts, the used word count, the payload and ``extra`` (tensors on the
+    same device). Never waits on the device. The step every shard of a
+    sharded encode runs."""
+    nt, c, t = tiles.shape
     W = tile_codec.width_hint(cfg, t, c)
     words, bits = tile_codec.encode_tiles(tiles, cfg, th, tw, W, prior)
     cap = payload_cap_hint(cfg, nt, t, c)
     pay, total = aligned_payload(words, bits, cap)
-    return EncodePending(
-        list(headers), counts, th, tw, k_prior, cfg, tiles, prior, W, words,
-        bits, cap, HostCopy(bits, k0, total, pay),
+    return ShardPending(
+        cfg, th, tw, tiles, prior, W, words, bits, cap,
+        HostCopy(bits, total, pay, *extra),
     )
 
 
-def encode_finish(p: EncodePending) -> List[bytes]:
-    """Wait on a dispatched encode and pack its containers. A stream longer
-    than the width hint is encoded again at its exact width, and a payload
-    larger than the capacity compacted again at its exact size, both
-    synchronously on the current stream."""
-    bits_np, k0_np, total_np, pay_np = p.result.wait()
+def shard_finish(p: ShardPending) -> Tuple[np.ndarray, bytes, List[np.ndarray]]:
+    """Wait on a dispatched shard: (each tile's byte length, int64; the
+    tiles' byte streams, concatenated; the extras as numpy arrays). A
+    stream longer than the width hint is encoded again at its exact width,
+    and a payload larger than the capacity compacted again at its exact
+    size, both synchronously on the shard's device."""
+    bits_np, total_np, pay_np, *extra = p.result.wait()
     nt, c, t = p.tiles.shape
     max_bits = int(bits_np.max())
     total = int(((bits_np + 31) // 32).sum())
-    if max_bits > 32 * p.W:
-        p.W = exact_width(max_bits)
-        p.words, p.bits = tile_codec.encode_tiles(
-            p.tiles, p.cfg, p.th, p.tw, p.W, p.prior)
-        (pay_np,) = HostCopy(aligned_payload(p.words, p.bits, total)[0]).wait()
-    elif int(total_np[0]) > p.cap:
-        (pay_np,) = HostCopy(aligned_payload(p.words, p.bits, total)[0]).wait()
+    with on_device(p.tiles.device):
+        if max_bits > 32 * p.W:
+            p.W = exact_width(max_bits)
+            p.words, p.bits = tile_codec.encode_tiles(
+                p.tiles, p.cfg, p.th, p.tw, p.W, p.prior)
+            (pay_np,) = HostCopy(aligned_payload(p.words, p.bits, total)[0]).wait()
+        elif int(total_np[0]) > p.cap:
+            (pay_np,) = HostCopy(aligned_payload(p.words, p.bits, total)[0]).wait()
     tile_codec.observe_width(p.cfg, t, c, max_bits)
     observe_payload(p.cfg, t, c, total, nt)
     tile_bytes = (bits_np + 7) // 8
-    payload = flct.strip_word_alignment(pay_np, tile_bytes)
+    return tile_bytes, flct.strip_word_alignment(pay_np, tile_bytes), extra
+
+
+def encode_dispatch(
+    images: Sequence[np.ndarray], headers: Sequence[Header], th: int, tw: int,
+    k_prior: bool, device: torch.device,
+) -> EncodePending:
+    """Enqueue the encode chain of same-geometry images on the current
+    stream: ``encode_prepare``, then ``shard_dispatch`` over all the tiles.
+    Never waits on the device."""
+    tiles, prior, k0, counts, cfg = encode_prepare(images, headers, th, tw, k_prior, device)
+    shard = shard_dispatch(tiles, prior, cfg, th, tw, k0)
+    return EncodePending(**vars(shard), headers=list(headers), counts=counts,
+                         k_prior=k_prior)
+
+
+def pack_containers(
+    headers: Sequence[Header], counts: Sequence[int], th: int, tw: int,
+    tile_bytes: np.ndarray, payload: bytes, k0: Optional[np.ndarray],
+) -> List[bytes]:
+    """One container per image from the tiles' byte lengths and streams in
+    tile order (``counts[i]`` tiles for image i); ``k0`` None writes v0."""
     out, t0, p0 = [], 0, 0
-    for i, (hd, n_t) in enumerate(zip(p.headers, p.counts)):
+    for i, (hd, n_t) in enumerate(zip(headers, counts)):
         tb = tile_bytes[t0 : t0 + n_t]
         p1 = p0 + int(tb.sum())
         out.append(flct.pack_tiled_container(
-            hd, p.tw, p.th, tb, payload[p0:p1], k0_np[i] if p.k_prior else None,
+            hd, tw, th, tb, payload[p0:p1], None if k0 is None else k0[i],
         ))
         t0, p0 = t0 + n_t, p1
     return out
+
+
+def encode_finish(p: EncodePending) -> List[bytes]:
+    """Wait on a dispatched encode (``shard_finish``) and pack its
+    containers."""
+    tile_bytes, payload, (k0_np,) = shard_finish(p)
+    return pack_containers(p.headers, p.counts, p.th, p.tw, tile_bytes, payload,
+                           k0_np if p.k_prior else None)
 
 
 def encode_group(
@@ -291,6 +353,13 @@ def word_rows(
     return torch.where(w >= (1 << 31), w - (1 << 32), w).to(torch.int32)
 
 
+def plane_bounds(hd: flct.TiledHeader) -> Tuple[int, int]:
+    """The least and the largest value a decoded plane may hold: 0 (the
+    chroma planes of RGB: minus the depth's maximum) and the maximum."""
+    bound = (1 << hd.pixel_depth.bits) - 1
+    return (0 if hd.num_channels == 1 else -bound), bound
+
+
 def assemble_image(
     bufs: torch.Tensor, hd: flct.TiledHeader
 ):
@@ -300,8 +369,7 @@ def assemble_image(
     is rejected the same way whichever image it lands in."""
     th, tw, c = hd.tile_h, hd.tile_w, hd.num_channels
     ty, tx = -(-hd.height // th), -(-hd.width // tw)
-    bound = (1 << hd.pixel_depth.bits) - 1
-    lo = 0 if c == 1 else -bound
+    lo, bound = plane_bounds(hd)
     planes_ok = ((bufs >= lo) & (bufs <= bound)).all()
     planes = (
         bufs.reshape(ty, tx, c, th, tw)
@@ -333,44 +401,67 @@ def empty_image(hd: flct.TiledHeader) -> np.ndarray:
     return np.zeros(shape, dtype)
 
 
+def row_width(lens: np.ndarray) -> int:
+    """The bucketed word width of rows that hold tile streams of ``lens``
+    bytes."""
+    return tile_codec.bucket_words(int(-(-lens.max(initial=1) // 4)))
+
+
+def upload_rows(
+    lens: np.ndarray, payloads: Sequence[bytes], wd: int,
+    arrays: Sequence[np.ndarray], device: torch.device,
+) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+    """Tile streams (``payloads`` back to back) and their byte lengths
+    (int64) -> ((n, wd) int32 word rows on ``device``, ``arrays`` as tensors
+    there): one staged upload, then ``word_rows``. Never waits on the
+    device."""
+    pays = [np.frombuffer(p, np.uint8) for p in payloads]
+    pays = pays if sum(p.size for p in pays) else [np.zeros(4, np.uint8)]
+    arrays = [lens] + list(arrays)
+    buf, offs = stage(arrays + pays, device)
+    views = staged_views(buf, offs, arrays)
+    # The uint8 payloads lie back to back after the arrays.
+    return word_rows(buf[offs[len(arrays)] :], views[0], wd), views[1:]
+
+
+def assemble_dispatch(
+    headers: Sequence[flct.TiledHeader], bufs: torch.Tensor
+) -> HostCopy:
+    """Decoded planes of same-geometry containers, in tile order -> one
+    copy to the host of the validity flags and the narrowed images (uint8,
+    or uint16 bit patterns as int16), assembled, range-checked and cropped
+    on the planes' device. Never waits on the device."""
+    depth = headers[0].pixel_depth
+    narrow = torch.uint8 if depth == PixelDepth.EIGHT else torch.int16
+    imgs, flags, t0 = [], [], 0
+    for hd in headers:
+        out, valid = assemble_image(bufs[t0 : t0 + hd.n_tiles], hd)
+        imgs.append(out.clamp(0, (1 << depth.bits) - 1).to(narrow))
+        flags.append(valid)
+        t0 += hd.n_tiles
+    return HostCopy(torch.stack(flags), *imgs)
+
+
 def decode_dispatch(
     headers: Sequence[flct.TiledHeader], payloads: Sequence[bytes],
     device: torch.device,
 ) -> HostCopy:
     """Enqueue the decode chain of same-geometry containers (same tile dims,
     channel count and depth) on the current stream: one staged upload of
-    the payloads, length table, priors and tile owners, one decode launch,
-    device assembly and one copy to the host of the validity flags and the
-    narrowed images (uint8, or uint16 bit patterns as int16). Never waits
-    on the device."""
+    the payloads, length table, priors and tile owners (``upload_rows``),
+    one decode launch, then ``assemble_dispatch``. Never waits on the
+    device."""
     h0 = headers[0]
     cfg = tiled_config_for_depth(h0.pixel_depth)
-    c, th, tw = h0.num_channels, h0.tile_h, h0.tile_w
     lens = np.concatenate([hd.tile_lengths for hd in headers])
-    wd = tile_codec.bucket_words(int(-(-lens.max(initial=1) // 4)))
-    priors = np.stack([flct.prior_from_k0(hd.k0, cfg, c) for hd in headers])
+    priors = np.stack([flct.prior_from_k0(hd.k0, cfg, h0.num_channels) for hd in headers])
     owner = np.repeat(np.arange(len(headers)), [hd.n_tiles for hd in headers])
-    pays = [np.frombuffer(p, np.uint8) for p in payloads]
-    pays = pays if sum(p.size for p in pays) else [np.zeros(4, np.uint8)]
-    buf, offs = stage([lens, priors, owner] + pays, device)
-    lens_t = buf[offs[0] : offs[0] + lens.nbytes].view(torch.int64)
-    priors_t = buf[offs[1] : offs[1] + priors.nbytes].view(torch.int32).reshape(priors.shape)
-    payload = buf[offs[3] :]  # the uint8 payloads lie back to back
-    if len(headers) == 1:
-        prior = priors_t[0]
-    else:
-        prior = priors_t[buf[offs[2] : offs[2] + owner.nbytes].view(torch.int64)]
+    rows, (priors_t, owner_t) = upload_rows(
+        lens, payloads, row_width(lens), [priors, owner], device)
+    prior = priors_t[0] if len(headers) == 1 else priors_t[owner_t]
     bufs = tile_codec.decode_tiles(
-        word_rows(payload, lens_t, wd), cfg, th, tw, c, prior
-    )
-    narrow = torch.uint8 if h0.pixel_depth == PixelDepth.EIGHT else torch.int16
-    imgs, flags, t0 = [], [], 0
-    for hd in headers:
-        out, valid = assemble_image(bufs[t0 : t0 + hd.n_tiles], hd)
-        imgs.append(out.clamp(0, (1 << h0.pixel_depth.bits) - 1).to(narrow))
-        flags.append(valid)
-        t0 += hd.n_tiles
-    return HostCopy(torch.stack(flags), *imgs)
+        rows, cfg, h0.tile_h, h0.tile_w, h0.num_channels, prior)
+    return assemble_dispatch(headers, bufs)
 
 
 def decode_finish(p: HostCopy) -> Tuple[List[np.ndarray], np.ndarray]:
