@@ -78,14 +78,27 @@ Phases, one line each, any failure exits non-zero and prints no result:
    gather and its assembly); then cfelics / dfelics (FLCS, and FLCT at
    tile 64) on 512^2 gray8 and rgb16 TIFFs, vfelics --export and bfelics
    (.fel and .qoi rows) in this process on --device cuda, against the
-   native codec, K1-K4 launched.
+   native codec, K1-K4 launched;
+9. the host backends and the port's scalar oracle (core/oracle.py) as an
+   independent check of the kernels: felics_tpu_torch.api under
+   backend="device", "oracle" and "native" on gray8 128^2, rgb8 96^2x3,
+   gray16 128^2 and rgb16 64^2x3 (bytes identical, every container exact
+   under every backend, Mpx/s of each, best of 3 calls on the host
+   clock); 8 tile streams
+   of phase 3's first gray8 and rgb8 images written through K1 at tile 32,
+   decoded by the oracle in bucketed-k mode into the image's tiles and
+   encoded back to the same bits, K2's planes of those streams equal to
+   the oracle's; K4's planes and end bit of a 128^2 gray8 FLCS payload
+   equal to the oracle's; cfelics --backend oracle|native writing the
+   .fel --backend device writes, dfelics under every backend writing the
+   image; K1-K4 launched.
 
 No module of JAX or of the JAX package felics_tpu is imported; the native
 codec is reached through felics_tpu_torch.native (native/build.py builds
 it). Each kernel's entry in the kernels line carries its time and its
 plain version's at the main path's shape, its bound (bytes at 3.35 TB/s
 against operations), its launches on the main path and per call, and its
-launches on phase 8's sharded paths and CLIs.
+launches on phase 8's sharded paths and CLIs and in phase 9.
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.
 """
@@ -851,6 +864,156 @@ def cli_phase(np, card, images) -> dict:
     return launches
 
 
+def host_backends(np, torch, dev, card, classes) -> dict:
+    """Phase 9, the API's host backends and the port's scalar oracle as a
+    check of K1, K2 and K4: api.compress_image_bytes under "device",
+    "oracle" and "native" on gray8 128^2, rgb8 96^2x3, gray16 128^2 and
+    rgb16 64^2x3 (the same bytes, each container decoded exactly under
+    every backend; Mpx/s of each, best of 3 calls on the host clock after
+    a warm device call); 8 tile streams of a gray8 and an rgb8 512^2 FLCT
+    container written through K1 at tile 32 (v2 prior), decoded on the
+    oracle in bucketed-k mode into the image's tiles and encoded back to
+    the same bytes, and K2's planes of the same streams equal to the
+    oracle's; K4's planes and end bit of a 128^2 gray8 FLCS payload equal
+    to the oracle's; cfelics --backend oracle|native writing the .fel
+    --backend device writes, dfelics under every backend writing the
+    image. Returns the K1-K4 launches of the phase."""
+    import contextlib
+    import io
+    import shutil
+    import tempfile
+
+    from felics_tpu_torch import api
+    from felics_tpu_torch.cli import cfelics, dfelics
+    from felics_tpu_torch.coding import BitReader
+    from felics_tpu_torch.config import TileConfig, config_for_depth, tiled_config_for_depth
+    from felics_tpu_torch.core import codec, oracle
+    from felics_tpu_torch.device import upload_image
+    from felics_tpu_torch.format import header_for_array
+    from felics_tpu_torch.io.images import load_image, save_image
+    from felics_tpu_torch.ops import kscan as flcs_ks
+    from felics_tpu_torch.ops import tile_codec as tcd
+    from felics_tpu_torch.parallel import flct, tiling
+
+    def timed(fn, reps=3):
+        """fn()'s result and its least host seconds over `reps` calls."""
+        secs = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+        return out, min(secs)
+
+    images = {
+        "gray8": synth((128, 128), np.uint8, 1, 6, np)[0],
+        "rgb8": synth((96, 96, 3), np.uint8, 1, 6, np)[0],
+        "gray16": synth((128, 128), np.uint16, 1, 800, np)[0],
+        "rgb16": synth((64, 64, 3), np.uint16, 1, 800, np)[0],
+    }
+    flcs_ks.LAUNCHES = codec.DECODE_LAUNCHES = 0
+    tcd.ENCODE_LAUNCHES = tcd.DECODE_LAUNCHES = 0
+    for name, im in images.items():
+        api.decompress_image_bytes(api.compress_image_bytes(im, device=dev), device=dev)  # warm
+        px = im.shape[0] * im.shape[1]
+        row, blobs = {}, {}
+        for b in api.BACKENDS:
+            blobs[b], secs = timed(lambda: api.compress_image_bytes(im, device=dev, backend=b))
+            row[f"{b}_encode_mpx_s"] = px / secs / 1e6
+        if not blobs["device"] == blobs["oracle"] == blobs["native"]:
+            fail(f"host backends {name}: the three backends wrote different bytes")
+        for b in api.BACKENDS:
+            out, secs = timed(lambda: api.decompress_image_bytes(
+                blobs["device"], device=dev, backend=b))
+            if out.dtype != im.dtype or not np.array_equal(out, im):
+                fail(f"host backends {name}: the {b} decode is not exact")
+            row[f"{b}_decode_mpx_s"] = px / secs / 1e6
+        say("9 backends", nvidia_smi=card, cls=name, shape=list(im.shape),
+            bytes_identical=True, exact_under_every_backend=True, **row)
+
+    # K1's tile streams and K2's planes against the oracle.
+    tc = TileConfig(TILE, TILE)
+    for name, ims in classes[:2]:
+        im = ims[0]
+        blob = tiling.compress_tiled_bytes(im, tc, device=dev)
+        hd = flct.read_tiled_header(blob)
+        cfg = tiled_config_for_depth(hd.pixel_depth)
+        c = hd.num_channels
+        prior = flct.prior_from_k0(hd.k0, cfg, c)
+        tiles = tiling.image_tiles(upload_image(im, dev)[None], TILE, TILE).cpu().numpy()
+        offs = np.concatenate([[0], np.cumsum(hd.tile_lengths)]) + hd.payload_off
+        pick = np.linspace(0, hd.n_tiles - 1, 8).astype(int)
+        streams = [blob[offs[t]:offs[t + 1]] for t in pick]
+        t0 = time.perf_counter()
+        planes = []
+        for t, stream in zip(pick, streams):
+            got, end = oracle.decompress_tile(stream, TILE, TILE, c, cfg, prior)
+            if end > 8 * len(stream) or not np.array_equal(got, tiles[t]):
+                fail(f"K1 {name} tile {t}: the oracle does not decode K1's stream to the tile")
+            again, bits = oracle.compress_tile(tiles[t], TILE, TILE, cfg, prior)
+            if bits != end or again != stream[:len(again)]:
+                fail(f"K1 {name} tile {t}: the oracle encodes the tile to other bits")
+            planes.append(got)
+        oracle_s = time.perf_counter() - t0
+        lens = np.array([len(s) for s in streams], np.int64)
+        rows, (prior_t,) = tiling.upload_rows(lens, streams, tiling.row_width(lens), [prior], dev)
+        k2 = tcd.decode_tiles(rows, cfg, TILE, TILE, c, prior_t).cpu().numpy()
+        if not np.array_equal(k2, np.stack(planes)):
+            fail(f"K2 {name}: planes differ from the oracle's")
+        say("9 K1 K2 vs oracle", cls=name, tiles=pick.tolist(), stream_bytes=lens.tolist(),
+            oracle_s=oracle_s, k1_streams_decode_to_tiles=True,
+            oracle_reencodes_k1_bits=True, k2_equals_oracle=True)
+
+    # K4 against the oracle.
+    im = images["gray8"]
+    h, w = im.shape
+    cfg = config_for_depth(header_for_array(im).pixel_depth)
+    payload = api.compress_image_bytes(im, device=dev)[14:]
+    words = torch.from_numpy(codec.payload_words([payload]).view(np.int32)).to(dev)
+    k4, end, _ = codec.decode_scan(words, h, w, cfg, 1)
+    reader = BitReader(payload)
+    want = oracle.decompress_channel(w, h, cfg, reader)
+    if not np.array_equal(k4[0, 0].cpu().numpy(), want) or int(end[0]) != reader.bit_position:
+        fail("K4 gray8 128^2: planes or end bit differ from the oracle's")
+    say("9 K4 vs oracle", cls="gray8", shape=[h, w], end_bit=reader.bit_position,
+        k4_equals_oracle=True)
+
+    # The CLIs' --backend.
+    tmp = tempfile.mkdtemp(prefix="felics_backend_")
+    try:
+        for name in ("gray8", "rgb16"):
+            src = os.path.join(tmp, f"{name}.tiff")
+            save_image(src, images[name])
+            ext = ".tiff" if name == "rgb16" else ".png"
+            fels = {}
+            for b in api.BACKENDS:
+                fel, out = os.path.join(tmp, f"{name}_{b}.fel"), os.path.join(tmp, f"{name}_{b}{ext}")
+                for main, argv in ((cfelics.main, ["-i", src, "-o", fel]),
+                                   (dfelics.main, ["-i", os.path.join(tmp, f"{name}_device.fel"),
+                                                   "-o", out])):
+                    buf = io.StringIO()
+                    with contextlib.redirect_stdout(buf):
+                        rc = main([*argv, "--backend", b, "--device", "cuda"])
+                    if rc != 0:
+                        fail(f"{main.__module__} --backend {b}: exit code {rc}: {buf.getvalue()}")
+                with open(fel, "rb") as f:
+                    fels[b] = f.read()
+                got = load_image(out)
+                if got.dtype != images[name].dtype or not np.array_equal(got, images[name]):
+                    fail(f"cli {name} --backend {b}: dfelics' file is not exact")
+            if not fels["device"] == fels["oracle"] == fels["native"]:
+                fail(f"cli {name}: --backend oracle|native .fel differs from --backend device")
+        say("9 cli", fel_identical=True, exact=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    launches = {"kscan": flcs_ks.LAUNCHES, "flcs_decode": codec.DECODE_LAUNCHES,
+                "encode": tcd.ENCODE_LAUNCHES, "decode": tcd.DECODE_LAUNCHES}
+    if not all(launches.values()):
+        fail(f"phase 9 did not launch all four kernels: {launches}")
+    say("9 done", launches=launches)
+    return launches
+
+
 def profiled(torch, fn, kernel: str):
     """fn()'s result and the device ms of the kernels whose name holds
     `kernel` in that one call, from torch.profiler (None when it saw no
@@ -1419,6 +1582,11 @@ def main() -> None:
     say("8 done", seconds=time.perf_counter() - t8, sharded_launches=sharded,
         mesh_launches=meshed["launches"], group_launches=groups, cli_launches=cli)
 
+    # ---- phase 9: the host backends, the oracle against K1, K2 and K4 -------
+    t9 = time.perf_counter()
+    hosted = host_backends(np, torch, dev, card, classes)
+    say("9 seconds", seconds=time.perf_counter() - t9)
+
     foreign =[m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "felics_tpu")]
     if foreign:
         fail(f"modules of JAX or of the JAX package were imported: {foreign[:5]}")
@@ -1448,7 +1616,8 @@ def main() -> None:
               plain_ms_by_class=flct_by_class("encode_plain_ms"),
               bound_ms_by_class={c: r["encode_bound"][0] for c, r in kt.items()},
               stream_launches=stream_launches["encode"],
-              sharded_launches=sharded["encode"], cli_launches=cli["encode"]),
+              sharded_launches=sharded["encode"], cli_launches=cli["encode"],
+              host_backend_launches=hosted["encode"]),
         entry("flct_decode", "felics_tpu/ops/pallas_codec.py:805", launches["decode"],
               per_call["decode"], errs["decode"], g8k["decode_ms"],
               g8k["decode_plain_ms"], g8k["decode_bound"], shape=flct_shape,
@@ -1459,6 +1628,7 @@ def main() -> None:
               bound_ms_by_class={c: r["decode_bound"][0] for c, r in kt.items()},
               stream_launches=stream_launches["decode"],
               sharded_launches=sharded["decode"], cli_launches=cli["decode"],
+              host_backend_launches=hosted["decode"],
               # the 64-bit-position instantiation, on the long row
               wide_launches=long_row["decode_wide_launches"],
               wide_decode_s=long_row["decode_s"], wide_kernel_ms=long_row["k2_kernel_ms"]),
@@ -1469,7 +1639,8 @@ def main() -> None:
               bound_ms_by_class={c: r["kscan_bound"][0] for c, r in full.items()},
               small_shape="gray8 4x64^2", small_ms=flcs_timing["kscan"][0],
               small_plain_ms=flcs_timing["kscan"][1],
-              sharded_launches=0, cli_launches=cli["kscan"]),
+              sharded_launches=0, cli_launches=cli["kscan"],
+              host_backend_launches=hosted["kscan"]),
         entry("flcs_decode", "felics_tpu/core/jax_codec.py:303", flcs_launches["decode"],
               flcs_per_call["decode"], flcs_errs["decode"], full["gray8"]["decode_ms"],
               full["gray8"]["decode_plain_ms"], full["gray8"]["decode_bound"],
@@ -1477,7 +1648,8 @@ def main() -> None:
               bound_ms_by_class={c: r["decode_bound"][0] for c, r in full.items()},
               table_zero_ms=zero_ms, small_shape="gray8 4x64^2",
               small_ms=flcs_timing["decode"][0], small_plain_ms=flcs_timing["decode"][1],
-              sharded_launches=0, cli_launches=cli["flcs_decode"]),
+              sharded_launches=0, cli_launches=cli["flcs_decode"],
+              host_backend_launches=hosted["flcs_decode"]),
     ]
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -11,7 +11,9 @@ this package imports ``torch`` and nothing of ``jax`` or ``felics_tpu``.
 Corrupt input raises ``DecompressionError`` (``felics_tpu_torch.errors``).
 
 Entry points, each taking ``device`` (default ``"cuda"``, which raises on a
-host without CUDA; pass ``device="cpu"`` for the plain PyTorch versions):
+host without CUDA; pass ``device="cpu"`` for the plain PyTorch versions)
+and ``backend`` (``"device"``, the default; ``"oracle"``, the scalar codec
+of ``core/oracle.py``; ``"native"``, the repository's C++ codec):
 
 * ``compress_image_bytes`` / ``decompress_image_bytes``,
   ``compress_image`` / ``decompress_image`` (file objects) — one image,

@@ -1,8 +1,8 @@
 """bfelics — cross-format corpus benchmark.
 
 Counterpart: felics_tpu/cli/bfelics.py. Converts every TIFF in a corpus
-directory to .fel through ``felics_tpu_torch.api`` on ``--device``, to PNG
-through PIL, to QOI through the native core's codec
+directory to .fel through ``felics_tpu_torch.api`` (``--backend`` on
+``--device``), to PNG through PIL, to QOI through the native core's codec
 (``felics_tpu_torch.native``), to lossless JPEG 2000 through PIL, and to
 WebP when ``cwebp`` is on the path; times each pass and its decompression,
 and prints total sizes and ratios; ``--plot`` renders the bar charts.
@@ -31,7 +31,7 @@ def _dir_bytes(path: str) -> int:
     )
 
 
-def bench_felics(files, src, out_dir, container, device, tile_size):
+def bench_felics(files, src, out_dir, container, device, tile_size, backend="device"):
     from felics_tpu_torch.api import compress_image_bytes
     from felics_tpu_torch.config import TileConfig
     from felics_tpu_torch.io.images import load_image
@@ -45,6 +45,7 @@ def bench_felics(files, src, out_dir, container, device, tile_size):
             container=container,
             tile=TileConfig(tile_h=tile_size, tile_w=tile_size),
             device=device,
+            backend=backend,
         )
         with open(
             os.path.join(out_dir, os.path.splitext(name)[0] + ".fel"), "wb"
@@ -148,14 +149,14 @@ def bench_qoi_decompress(out_dir):
     return time.time() - start
 
 
-def bench_felics_decompress(out_dir, device):
+def bench_felics_decompress(out_dir, device, backend="device"):
     from felics_tpu_torch.api import decompress_image_bytes
 
     files = [f for f in os.listdir(out_dir) if f.endswith(".fel")]
     start = time.time()
     for name in files:
         with open(os.path.join(out_dir, name), "rb") as f:
-            decompress_image_bytes(f.read(), device=device)
+            decompress_image_bytes(f.read(), device=device, backend=backend)
     return time.time() - start
 
 
@@ -183,6 +184,10 @@ def main(argv=None) -> int:
         "--device", default="cuda",
         help="Torch device for the .fel columns: cuda (default), cuda:N or cpu.",
     )
+    parser.add_argument(
+        "--backend", choices=["device", "oracle", "native"], default="device",
+        help="Codec of the .fel columns: device, oracle or native.",
+    )
     parser.add_argument("--tile-size", type=int, default=128)
     parser.add_argument("--plot", action="store_true", help="Write bar charts.")
     args = parser.parse_args(argv)
@@ -196,7 +201,7 @@ def main(argv=None) -> int:
     results = {}
     t, size = bench_felics(
         files, args.corpus, os.path.join(args.out, "to_felics"),
-        args.container, args.device, args.tile_size,
+        args.container, args.device, args.tile_size, args.backend,
     )
     results[".fel"] = (t, size)
     t, size = bench_png(files, args.corpus, os.path.join(args.out, "to_png"))
@@ -218,7 +223,7 @@ def main(argv=None) -> int:
 
     dec_times = {
         ".fel": bench_felics_decompress(
-            os.path.join(args.out, "to_felics"), args.device
+            os.path.join(args.out, "to_felics"), args.device, args.backend
         ),
         ".png": bench_png_decompress(os.path.join(args.out, "to_png")),
     }

@@ -3,7 +3,9 @@
 Counterpart: felics_tpu/cli/cfelics.py. The same ``-i/--input``
 ``-o/--output`` flags, per-depth progress message and exit code 1 with a
 printed message on unreadable or unsupported inputs; ``--container flct``
-and ``--tile-size`` as there, and ``--device`` in place of ``--backend``.
+and ``--tile-size`` as there. ``--backend`` is ``device`` (default: the
+port's codecs on ``--device``), ``oracle`` or ``native``, as in
+``felics_tpu_torch.api``; the reference's ``auto`` has no counterpart.
 """
 
 from __future__ import annotations
@@ -29,6 +31,10 @@ def main(argv=None) -> int:
     parser.add_argument(
         "--device", default="cuda",
         help="Torch device to code on: cuda (default), cuda:N or cpu.",
+    )
+    parser.add_argument(
+        "--backend", choices=["device", "oracle", "native"], default="device",
+        help="Codec: device (on --device), oracle (scalar, FLCS) or native (C++).",
     )
     parser.add_argument(
         "--tile-size", type=int, default=128, help="FLCT tile side length."
@@ -62,6 +68,7 @@ def main(argv=None) -> int:
             container=args.container,
             tile=TileConfig(tile_h=args.tile_size, tile_w=args.tile_size),
             device=args.device,
+            backend=args.backend,
         )
         with open(args.output, "wb") as f:
             f.write(data)

@@ -2,7 +2,8 @@
 
 Counterpart: felics_tpu/cli/dfelics.py. ``-i/--input`` ``-o/--output``;
 the output format follows the output extension. FLCS and FLCT containers
-alike; ``--device`` in place of ``--backend``.
+alike; ``--backend`` ``device`` (default, on ``--device``), ``oracle`` or
+``native``, as in ``felics_tpu_torch.api``.
 """
 
 from __future__ import annotations
@@ -27,6 +28,10 @@ def main(argv=None) -> int:
         "--device", default="cuda",
         help="Torch device to decode on: cuda (default), cuda:N or cpu.",
     )
+    parser.add_argument(
+        "--backend", choices=["device", "oracle", "native"], default="device",
+        help="Codec: device (on --device), oracle (scalar, FLCS) or native (C++).",
+    )
     args = parser.parse_args(argv)
 
     try:
@@ -39,7 +44,8 @@ def main(argv=None) -> int:
     from felics_tpu_torch.api import decompress_image_bytes
 
     try:
-        image = decompress_image_bytes(data, device=args.device)
+        image = decompress_image_bytes(
+            data, device=args.device, backend=args.backend)
     except Exception as e:
         print(f"Error while decompressing the image: {e!r}")
         return 1

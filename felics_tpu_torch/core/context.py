@@ -8,13 +8,34 @@ For a pixel at flat raster index ``i`` of an image of width ``w``:
   * left column (x==0, y>=2):   (above, above-above)    = (i-w, i-2w)
   * left column (x==0, y==1):   (above, above-right)    = (i-w, i-w+1)
   * otherwise (the first two raster pixels): no neighbours.
+
+``nearest_neighbours`` is the scalar form the oracle walks with (``None``
+for the first two pixels); ``neighbour_indices`` gives every pixel's at
+once, for the device codecs.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
+
+
+def nearest_neighbours(i: int, width: int) -> Optional[Tuple[int, int]]:
+    """The two neighbours of raster pixel ``i``, or None for the first two
+    pixels; the reference's rule exactly."""
+    x, y = i % width, i // width
+    if x > 0 and y > 0:
+        return (i - 1, i - width)
+    if y == 0:
+        if x >= 2:
+            return (i - 1, i - 2)
+        return None
+    if y >= 2:
+        return (i - width, i - 2 * width)
+    if (x + 1) < width:
+        return (i - width, i - width + 1)
+    return None
 
 
 def neighbour_indices(height: int, width: int) -> Tuple[np.ndarray, np.ndarray]:
@@ -43,3 +64,11 @@ def neighbour_indices(height: int, width: int) -> Tuple[np.ndarray, np.ndarray]:
         ),
     )
     return a.astype(np.int32), b.astype(np.int32)
+
+
+def context_of(v1, v2, xp=np):
+    """``(low, high, context)`` of two neighbour values, context = H - L;
+    elementwise on numpy or torch arrays (pass ``xp``) or on ints."""
+    h = xp.maximum(v1, v2)
+    low = xp.minimum(v1, v2)
+    return low, h, (h - low)

@@ -123,8 +123,9 @@ def test_cuda_without_a_card_raises():
 
 def test_port_imports_no_jax():
     """Importing every module of the port and running CPU round trips of an
-    FLCS, an FLCT and a 1x1 image loads no module of JAX and none of the
-    reference package felics_tpu."""
+    FLCS, an FLCT and a 1x1 image, on the device codecs and through
+    backend="oracle", loads no module of JAX and none of the reference
+    package felics_tpu."""
     code = (
         "import importlib, pkgutil, sys, numpy as np\n"
         "import felics_tpu_torch as ft\n"
@@ -135,6 +136,9 @@ def test_port_imports_no_jax():
         "               (np.array([[[9, 8, 7]]], np.uint16), {})):\n"
         "    b = ft.compress_image_bytes(im, device='cpu', **kw)\n"
         "    assert (ft.decompress_image_bytes(b, device='cpu') == im).all()\n"
+        "    o = ft.compress_image_bytes(im, device='cpu', backend='oracle', **kw)\n"
+        "    assert o == b\n"
+        "    assert (ft.decompress_image_bytes(o, device='cpu', backend='oracle') == im).all()\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in\n"
         "       ('jax', 'jaxlib', 'felics_tpu')]\n"
         "assert not bad, bad\n"

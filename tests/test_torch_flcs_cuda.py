@@ -1,6 +1,8 @@
 """The FLCS kernels K3 (felics_tpu_torch/csrc/flcs_kscan.cu) and K4
-(felics_tpu_torch/csrc/flcs_decode.cu) against their plain versions, the
-two plain versions of K4 against each other, and where K4 keeps its state.
+(felics_tpu_torch/csrc/flcs_decode.cu) against their plain versions, K4
+and its plain version against the port's scalar oracle (core/oracle.py),
+the two plain versions of K4 against each other, and where K4 keeps its
+state.
 
 This module imports no JAX and nothing of felics_tpu, so it runs on a card
 as well as here: inputs
@@ -19,7 +21,8 @@ import torch
 
 from felics_tpu_torch import api
 from felics_tpu_torch.config import config_for_depth
-from felics_tpu_torch.core import codec
+from felics_tpu_torch.coding import BitReader
+from felics_tpu_torch.core import codec, oracle
 from felics_tpu_torch.format import header_for_array
 from felics_tpu_torch.ops import _build, analysis, kscan
 
@@ -92,6 +95,37 @@ def test_scalar_decode_scan_matches_tensor_version(name, img):
     for g, r in zip(got, want):
         assert torch.equal(g, r)
     assert torch.equal(got[0][0], planes)
+
+
+def _oracle_decode(img, h, w, cfg, c):
+    """The image's FLCS payload decoded channel by channel on the port's
+    oracle: (C, H*W) int32 planes and the bit it ended at."""
+    payload = api.compress_image_bytes(img, backend="oracle")[14:]
+    reader = BitReader(payload)
+    planes = [oracle.decompress_channel(w, h, cfg, reader) for _ in range(c)]
+    return torch.from_numpy(np.stack(planes).astype(np.int32)), reader.bit_position
+
+
+@pytest.mark.parametrize("name,img", CASES, ids=IDS)
+def test_oracle_decodes_as_the_plain_scan(name, img):
+    planes, h, w, cfg = _planes(img, CPU)
+    words = _word_rows(img, CPU)
+    c = planes.shape[0]
+    got = codec.decode_scan_scalar(words, h, w, cfg, c)
+    want, end = _oracle_decode(img, h, w, cfg, c)
+    assert torch.equal(got[0][0], want) and torch.equal(want, planes)
+    assert int(got[1][0]) == end
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,img", CASES, ids=IDS)
+def test_cuda_decode_scan_matches_the_oracle(cuda, name, img):
+    planes, h, w, cfg = _planes(img, cuda)
+    words = _word_rows(img, cuda)
+    c = planes.shape[0]
+    got = codec.decode_scan(words, h, w, cfg, c)
+    want, end = _oracle_decode(img, h, w, cfg, c)
+    assert torch.equal(got[0][0].cpu(), want) and int(got[1][0]) == end
 
 
 @pytest.mark.cuda

@@ -1,7 +1,8 @@
 """The FLCT tile kernels K1 (felics_tpu_torch/csrc/flct_encode.cu) and K2
 (felics_tpu_torch/csrc/flct_decode.cu) against their plain versions
-(ops/tile_codec.py: encode_tiles_ref, decode_tiles_ref), and the plain
-versions' own round trips.
+(ops/tile_codec.py: encode_tiles_ref, decode_tiles_ref) and against the
+port's scalar oracle (core/oracle.py: each word row decoded as one tile
+stream in bucketed-k mode), and the plain versions' own round trips.
 
 This module imports no JAX and nothing of felics_tpu, so it runs on a card
 as well as here: inputs are made with numpy from a seed and tiled by the
@@ -18,6 +19,7 @@ import pytest
 import torch
 
 from felics_tpu_torch.config import TileConfig, tiled_config_for_depth
+from felics_tpu_torch.core import oracle
 from felics_tpu_torch.device import upload_image
 from felics_tpu_torch.format import PixelDepth, header_for_array
 from felics_tpu_torch.ops import tile_codec as tcd
@@ -98,6 +100,27 @@ def _garbage_rows(device):
 GARBAGE = [(PixelDepth.EIGHT, 1), (PixelDepth.SIXTEEN, 3)]
 
 
+def _oracle_planes(words, bits, tiles, prior, cfg, th, tw):
+    """Each word row decoded on the port's oracle as one tile stream: its
+    planes must be the tile's and end at the row's bit count, and the
+    oracle must encode the tile back to the row's bits. Returns the
+    (n, C, t) decoded planes."""
+    c = tiles.shape[1]
+    rows = words.cpu().numpy().view(np.uint32).astype(">u4")
+    priors = prior.cpu().numpy()
+    want = tiles.cpu().numpy()
+    out = []
+    for i, row in enumerate(rows):
+        p = priors[i] if priors.ndim == 4 else priors
+        stream = row.tobytes()
+        planes, end = oracle.decompress_tile(stream, th, tw, c, cfg, p)
+        assert end == int(bits[i]) and np.array_equal(planes, want[i]), i
+        again, nbits = oracle.compress_tile(want[i], th, tw, cfg, p)
+        assert nbits == end and again == stream[:len(again)], i
+        out.append(planes)
+    return torch.from_numpy(np.stack(out).astype(np.int32))
+
+
 @pytest.mark.parametrize("name,img,tile,prior_kind", CASES, ids=IDS)
 def test_plain_versions_round_trip(name, img, tile, prior_kind):
     tiles, prior, cfg, th, tw = _inputs(img, tile, prior_kind, CPU)
@@ -106,6 +129,14 @@ def test_plain_versions_round_trip(name, img, tile, prior_kind):
     words, bits = tcd.encode_tiles_ref(tiles, cfg, th, tw, W, prior)
     assert int(bits.max()) <= 32 * W
     assert torch.equal(tcd.decode_tiles_ref(words, cfg, th, tw, c, prior), tiles)
+
+
+@pytest.mark.parametrize("name,img,tile,prior_kind", CASES, ids=IDS)
+def test_plain_words_decode_on_the_oracle(name, img, tile, prior_kind):
+    tiles, prior, cfg, th, tw = _inputs(img, tile, prior_kind, CPU)
+    W = tcd.encode_width_bound(cfg, tiles.shape[2], tiles.shape[1])
+    words, bits = tcd.encode_tiles_ref(tiles, cfg, th, tw, W, prior)
+    _oracle_planes(words, bits, tiles, prior, cfg, th, tw)
 
 
 def test_plain_encode_overflowing_width_keeps_exact_bits():
@@ -156,6 +187,18 @@ def test_cuda_kernels_match_plain_versions(cuda, name, img, tile, prior_kind):
     dk = tcd.decode_tiles(wk, cfg, th, tw, c, prior)
     assert torch.equal(dk, tcd.decode_tiles_ref(wk, cfg, th, tw, c, prior))
     assert torch.equal(dk, tiles)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,img,tile,prior_kind", CASES, ids=IDS)
+def test_cuda_kernels_match_the_oracle(cuda, name, img, tile, prior_kind):
+    """K1's word rows decode on the oracle to the tiles, and K2's planes
+    are the oracle's."""
+    tiles, prior, cfg, th, tw = _inputs(img, tile, prior_kind, cuda)
+    nt, c, t = tiles.shape
+    wk, bk = tcd.encode_tiles(tiles, cfg, th, tw, tcd.encode_width_bound(cfg, t, c), prior)
+    planes = _oracle_planes(wk, bk, tiles, prior, cfg, th, tw)
+    assert torch.equal(tcd.decode_tiles(wk, cfg, th, tw, c, prior).cpu(), planes)
 
 
 @pytest.mark.cuda
