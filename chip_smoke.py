@@ -91,14 +91,28 @@ Phases, one line each, any failure exits non-zero and prints no result:
    the oracle's; K4's planes and end bit of a 128^2 gray8 FLCS payload
    equal to the oracle's; cfelics --backend oracle|native writing the
    .fel --backend device writes, dfelics under every backend writing the
-   image; K1-K4 launched.
+   image; K1-K4 launched;
+10. the edges: every shape of the 0..20 x 0..20 grid (uniform noise,
+   seeded) for gray8, gray16, rgb8 and rgb16, one batch a class, FLCS
+   through api.compress_images_bytes / decompress_images_bytes and FLCT
+   through compress_tiled_batch / decompress_tiled_batch at tiles 2x2,
+   4x3 and 64x64, on device="cuda": containers byte-identical to the
+   native codec (native.compress, native.compress_tiled; for the
+   header-only FLCT container of a zero-area image native clamps the tile
+   fields to the image where felics_tpu writes max(2, tile), and the
+   check says so), exact decodes, K1-K4 launched (counters), zero-area
+   images alone launching none; then K1 and K2 against their plain
+   versions (on the CPU, on the same inputs) on each class's batch at
+   tile 2x2 and on its 1xN and Nx1 rows at 4x3 and 64x64, and K3 and K4
+   against kscan_ref and decode_scan_scalar on those rows, exact to the
+   word, bit count, k, plane and end bit.
 
 No module of JAX or of the JAX package felics_tpu is imported; the native
 codec is reached through felics_tpu_torch.native (native/build.py builds
 it). Each kernel's entry in the kernels line carries its time and its
 plain version's at the main path's shape, its bound (bytes at 3.35 TB/s
 against operations), its launches on the main path and per call, and its
-launches on phase 8's sharded paths and CLIs and in phase 9.
+launches on phase 8's sharded paths and CLIs and in phases 9 and 10.
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.
 """
@@ -128,6 +142,10 @@ LONG_SIDE = 4096
 BIG_SIDE = 4096
 BIG_TILE = 64
 WORKER_SECONDS = 240
+# Phase 10: every shape 0..20 x 0..20, and FLCT at the smallest tile, an
+# odd one and one wider than every image of the grid.
+EDGE_SIDES = range(21)
+EDGE_TILES = ((2, 2), (4, 3), (64, 64))
 # H100 SXM peaks (NVIDIA's data sheet, at a 700 W limit): HBM3 bytes a
 # second, and float32 operations a second outside the tensor cores, the
 # nearest entry to the kernels' 32-bit integer operations.
@@ -1014,6 +1032,176 @@ def host_backends(np, torch, dev, card, classes) -> dict:
     return launches
 
 
+def edge_classes(np):
+    """Phase 10's batches: one image of uniform noise for every shape of
+    the 0..20 x 0..20 grid, per class (seeded)."""
+    kinds = (("gray8", np.uint8, ()), ("gray16", np.uint16, ()),
+             ("rgb8", np.uint8, (3,)), ("rgb16", np.uint16, (3,)))
+    out = []
+    for seed, (name, dtype, extra) in enumerate(kinds):
+        rng = np.random.default_rng(10 + seed)
+        hi = np.iinfo(dtype).max + 1
+        out.append((name, [rng.integers(0, hi, (h, w) + extra).astype(dtype)
+                           for h in EDGE_SIDES for w in EDGE_SIDES]))
+    return out
+
+
+def edge_tile_kernels(torch, dev, name, images, tile) -> int:
+    """K1 and K2 on ``images`` at ``tile``, one geometry group at a time as
+    the batched call groups them, against their plain versions run on the
+    CPU on the same inputs: words, bit counts and planes exact, the planes
+    equal to the tiles. Returns the number of groups."""
+    from felics_tpu_torch.format import header_for_array
+    from felics_tpu_torch.ops import tile_codec as tcd
+    from felics_tpu_torch.parallel import batch, tiling
+
+    _, _, groups = batch.geometry_groups(images, tile)
+    for (th, tw, _, _), idx in groups.items():
+        grp = [images[i] for i in idx]
+        p = tiling.encode_dispatch(grp, [header_for_array(im) for im in grp], th, tw,
+                                   True, dev)
+        tiling.encode_finish(p)
+        c = p.tiles.shape[1]
+        wk, bk = tcd.encode_tiles(p.tiles, p.cfg, th, tw, p.W, p.prior)
+        dk = tcd.decode_tiles(wk, p.cfg, th, tw, c, p.prior)
+        tiles, prior, wk, bk, dk = (t.cpu() for t in (p.tiles, p.prior, wk, bk, dk))
+        wr, br = tcd.encode_tiles_ref(tiles, p.cfg, th, tw, p.W, prior)
+        dr = tcd.decode_tiles_ref(wk, p.cfg, th, tw, c, prior)
+        if not (torch.equal(wk, wr) and torch.equal(bk, br) and torch.equal(dk, dr)
+                and torch.equal(dk, tiles)):
+            fail(f"10 edges {name} at tile {th}x{tw} ({len(grp)} images): K1/K2 "
+                 "differ from their plain versions or the tiles")
+    return len(groups)
+
+
+def edge_scan_kernels(np, torch, dev, name, images, blobs) -> None:
+    """K3 and K4 on each image (one launch a shape, as the API groups
+    them) against kscan_ref and decode_scan_scalar run on the CPU on the
+    same inputs, K4 on the image's container from the main path: k per
+    pixel, planes, end bit and overrun flag exact, the planes the image's."""
+    from felics_tpu_torch.config import config_for_depth
+    from felics_tpu_torch.core import codec
+    from felics_tpu_torch.format import header_for_array
+    from felics_tpu_torch.ops import analysis, kscan
+
+    for im, blob in zip(images, blobs):
+        hd = header_for_array(im)
+        h, w, c = hd.height, hd.width, hd.num_channels
+        cfg = config_for_depth(hd.pixel_depth)
+        chans = codec._image_channels([im], hd, dev)
+        a = analysis.analyze_channel(chans, h, w)
+        su = kscan.sort_updates(a.context, a.oor)
+        k3 = kscan.kscan(a.residual, su, cfg).cpu().long()
+        k3_ref = kscan.kscan_ref(a.residual.cpu(), kscan.SortedUpdates(*(t.cpu() for t in su)),
+                                 cfg)
+        words = torch.from_numpy(codec.payload_words([blob[14:]]).view(np.int32))
+        k4 = [t.cpu() for t in codec.decode_scan(words.to(dev), h, w, cfg, c)]
+        ref = codec.decode_scan_scalar(words, h, w, cfg, c)
+        if not (torch.equal(k3, k3_ref) and all(torch.equal(g, r) for g, r in zip(k4, ref))
+                and torch.equal(k4[0][0], chans.cpu()) and not bool(k4[2].any())):
+            fail(f"10 edges {name} {h}x{w}: K3/K4 differ from their plain versions "
+                 "or the image")
+
+
+def edges(np, torch, dev, card) -> dict:
+    """Phase 10 (the module docstring says what it checks). Returns the
+    K1-K4 launches of its main-path run."""
+    import struct
+
+    from felics_tpu_torch import api, compress_tiled_batch, decompress_tiled_batch, native
+    from felics_tpu_torch.config import TileConfig
+    from felics_tpu_torch.core import codec
+    from felics_tpu_torch.format import header_for_array
+    from felics_tpu_torch.ops import kscan as flcs_ks
+    from felics_tpu_torch.ops import tile_codec as tcd
+
+    def counts():
+        return {"encode": tcd.ENCODE_LAUNCHES, "decode": tcd.DECODE_LAUNCHES,
+                "kscan": flcs_ks.LAUNCHES, "flcs_decode": codec.DECODE_LAUNCHES}
+
+    def zero_counts():
+        tcd.ENCODE_LAUNCHES = tcd.DECODE_LAUNCHES = 0
+        flcs_ks.LAUNCHES = codec.DECODE_LAUNCHES = 0
+
+    def drive(images):
+        """The main path on one batch: FLCS (containers, images) and, per
+        tile, FLCT (containers, images)."""
+        blobs = api.compress_images_bytes(images, device=dev)
+        flct = {}
+        for th, tw in EDGE_TILES:
+            tb = compress_tiled_batch(images, TileConfig(th, tw), device=dev)
+            flct[(th, tw)] = (tb, decompress_tiled_batch(tb, device=dev))
+        return (blobs, api.decompress_images_bytes(blobs, device=dev)), flct
+
+    def exact(out, im, what):
+        if out.dtype != im.dtype or out.shape != im.shape or not np.array_equal(out, im):
+            fail(f"10 edges {what} {im.dtype} {im.shape}: the decode is not exact")
+
+    t0 = time.perf_counter()
+    classes = edge_classes(np)
+    empty = [im for _, ims in classes for im in ims if im.size == 0]
+    zero_counts()
+    drive(empty)
+    if any(counts().values()):
+        fail(f"10 edges: zero-area images launched kernels: {counts()}")
+
+    zero_counts()
+    t1 = time.perf_counter()
+    ran = {name: drive(images) for name, images in classes}
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t1
+    launches = counts()
+    if not all(launches.values()):
+        fail(f"10 edges: the grid did not launch all four kernels: {launches}")
+
+    t2 = time.perf_counter()
+    for name, images in classes:
+        (flcs, flcs_out), flct = ran[name]
+        for i, im in enumerate(images):
+            hd = header_for_array(im)
+            if flcs[i] != native.compress(im, hd):
+                fail(f"10 edges FLCS {name} {im.shape}: differs from the native codec")
+            exact(flcs_out[i], im, "FLCS")
+        for (th, tw), (blobs, outs) in flct.items():
+            natives = [native.compress_tiled(im, header_for_array(im), tw, th) for im in images]
+            for im, blob, out, nat in zip(images, blobs, outs, natives):
+                if im.size == 0:
+                    # native clamps a header-only container's tile fields
+                    # to the image; felics_tpu writes max(2, tile)
+                    nat = nat[:14] + struct.pack(">HH", max(2, tw), max(2, th)) + nat[18:]
+                if blob != nat:
+                    fail(f"10 edges FLCT {name} {im.shape} tile {th}x{tw}: "
+                         "differs from the native codec")
+                exact(out, im, f"FLCT tile {th}x{tw}")
+            for im, out in zip(images, decompress_tiled_batch(natives, device=dev)):
+                exact(out, im, f"FLCT of native, tile {th}x{tw}")
+    native_s = time.perf_counter() - t2
+
+    t3 = time.perf_counter()
+    groups = {}
+    for name, images in classes:
+        rows = [im for im in images if 1 in im.shape[:2]]
+        groups[name] = {"2x2": edge_tile_kernels(torch, dev, name, images, TileConfig(2, 2))}
+        for th, tw in EDGE_TILES[1:]:
+            groups[name][f"{th}x{tw} rows"] = edge_tile_kernels(
+                torch, dev, name, rows, TileConfig(th, tw))
+        flcs_blobs = ran[name][0][0]
+        scans = [(im, b) for im, b in zip(images, flcs_blobs)
+                 if 1 in im.shape[:2] and im.shape[0] * im.shape[1] >= 2]
+        edge_scan_kernels(np, torch, dev, name, *zip(*scans))
+        groups[name]["flcs rows"] = len(scans)
+    kernels_s = time.perf_counter() - t3
+    say("10 edges", nvidia_smi=card, seconds=time.perf_counter() - t0, run_s=run_s,
+        native_check_s=native_s, kernel_check_s=kernels_s,
+        classes=[name for name, _ in classes], shapes_per_class=len(classes[0][1]),
+        zero_area_per_class=sum(im.size == 0 for im in classes[0][1]),
+        flcs_scans_per_class=sum(im.shape[0] * im.shape[1] >= 2 for im in classes[0][1]),
+        tiles=[f"{th}x{tw}" for th, tw in EDGE_TILES], launches=launches,
+        kernel_check_groups=groups, native_bytes_identical=True, exact_decodes=True,
+        kernels_equal_plain_versions=True, zero_area_launches=0)
+    return launches
+
+
 def profiled(torch, fn, kernel: str):
     """fn()'s result and the device ms of the kernels whose name holds
     `kernel` in that one call, from torch.profiler (None when it saw no
@@ -1587,6 +1775,9 @@ def main() -> None:
     hosted = host_backends(np, torch, dev, card, classes)
     say("9 seconds", seconds=time.perf_counter() - t9)
 
+    # ---- phase 10: the edges of the 0..20 grid through K1-K4 ---------------
+    edge = edges(np, torch, dev, card)
+
     foreign =[m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "felics_tpu")]
     if foreign:
         fail(f"modules of JAX or of the JAX package were imported: {foreign[:5]}")
@@ -1617,7 +1808,7 @@ def main() -> None:
               bound_ms_by_class={c: r["encode_bound"][0] for c, r in kt.items()},
               stream_launches=stream_launches["encode"],
               sharded_launches=sharded["encode"], cli_launches=cli["encode"],
-              host_backend_launches=hosted["encode"]),
+              host_backend_launches=hosted["encode"], edge_launches=edge["encode"]),
         entry("flct_decode", "felics_tpu/ops/pallas_codec.py:805", launches["decode"],
               per_call["decode"], errs["decode"], g8k["decode_ms"],
               g8k["decode_plain_ms"], g8k["decode_bound"], shape=flct_shape,
@@ -1628,7 +1819,7 @@ def main() -> None:
               bound_ms_by_class={c: r["decode_bound"][0] for c, r in kt.items()},
               stream_launches=stream_launches["decode"],
               sharded_launches=sharded["decode"], cli_launches=cli["decode"],
-              host_backend_launches=hosted["decode"],
+              host_backend_launches=hosted["decode"], edge_launches=edge["decode"],
               # the 64-bit-position instantiation, on the long row
               wide_launches=long_row["decode_wide_launches"],
               wide_decode_s=long_row["decode_s"], wide_kernel_ms=long_row["k2_kernel_ms"]),
@@ -1640,7 +1831,7 @@ def main() -> None:
               small_shape="gray8 4x64^2", small_ms=flcs_timing["kscan"][0],
               small_plain_ms=flcs_timing["kscan"][1],
               sharded_launches=0, cli_launches=cli["kscan"],
-              host_backend_launches=hosted["kscan"]),
+              host_backend_launches=hosted["kscan"], edge_launches=edge["kscan"]),
         entry("flcs_decode", "felics_tpu/core/jax_codec.py:303", flcs_launches["decode"],
               flcs_per_call["decode"], flcs_errs["decode"], full["gray8"]["decode_ms"],
               full["gray8"]["decode_plain_ms"], full["gray8"]["decode_bound"],
@@ -1649,7 +1840,8 @@ def main() -> None:
               table_zero_ms=zero_ms, small_shape="gray8 4x64^2",
               small_ms=flcs_timing["decode"][0], small_plain_ms=flcs_timing["decode"][1],
               sharded_launches=0, cli_launches=cli["flcs_decode"],
-              host_backend_launches=hosted["flcs_decode"]),
+              host_backend_launches=hosted["flcs_decode"],
+              edge_launches=edge["flcs_decode"]),
     ]
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -78,3 +78,10 @@ class TileConfig:
 
     tile_h: int = 64
     tile_w: int = 64
+
+    def grid(self, height: int, width: int) -> Tuple[int, int]:
+        """(tile rows, tile columns) of a height x width image; 0 along a
+        zero dimension."""
+        th = -(-height // self.tile_h) if height else 0
+        tw = -(-width // self.tile_w) if width else 0
+        return th, tw

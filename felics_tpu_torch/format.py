@@ -78,14 +78,15 @@ def write_header(header: Header, to: BinaryIO, magic: bytes = MAGIC) -> None:
     to.write(header_bytes(header, magic))
 
 
-def read_header(from_: BinaryIO) -> Header:
-    """Parse and validate a 14-byte FLCS header, reading nothing past it
-    (reference: src/compression/format.rs:63-84)."""
+def read_header(from_: BinaryIO, magic: bytes = MAGIC) -> Header:
+    """Parse and validate a 14-byte header whose signature must be
+    ``magic``, reading nothing past it (reference:
+    src/compression/format.rs:63-84)."""
     raw = from_.read(HEADER_SIZE)
     if len(raw) < HEADER_SIZE:
         raise errors.IoError("unexpected end of stream while reading header")
     got_magic, color_byte, depth_byte, width, height = _HEADER_STRUCT.unpack(raw)
-    if got_magic != MAGIC:
+    if got_magic != magic:
         raise errors.InvalidSignature(f"bad magic: {got_magic!r}")
     return Header(
         color_type=ColorType.from_byte(color_byte),
@@ -95,8 +96,8 @@ def read_header(from_: BinaryIO) -> Header:
     )
 
 
-def read_header_bytes(data: bytes) -> Header:
-    return read_header(io.BytesIO(data))
+def read_header_bytes(data: bytes, magic: bytes = MAGIC) -> Header:
+    return read_header(io.BytesIO(data), magic)
 
 
 def header_for_array(image: np.ndarray) -> Header:

@@ -1,13 +1,14 @@
 """ctypes binding of the repository's native C++ codec, the port's comparator,
 and of its QOI codec.
 
-Counterpart: the ``compress``, ``decompress``, ``compress_tiled``,
-``decompress_tiled``, ``qoi_available``, ``qoi_encode`` and ``qoi_decode``
-calls of felics_tpu/native/runtime.py. The library is
+Counterpart: the ``available``, ``compress``, ``decompress``,
+``compress_tiled``, ``decompress_tiled``, ``qoi_available``, ``qoi_encode``
+and ``qoi_decode`` calls of felics_tpu/native/runtime.py. The library is
 ``native/build/libfelics_core.so``, built by ``python native/build.py`` from
-native/src/felics_core.cpp. The codec calls of the port never reach it:
-``chip_smoke.py`` holds the port's containers and images against it, and
-``bfelics`` takes its QOI column from it.
+native/src/felics_core.cpp. The device codecs never reach it: the API's
+``backend="native"`` calls it by name, ``chip_smoke.py`` holds the port's
+containers and images against it, and ``bfelics`` takes its QOI column
+from it.
 
 C ABI (0 = ok; a negative code names the error class):
     int fel_compress(const int32_t* pixels, uint32_t width, uint32_t height,
@@ -140,8 +141,10 @@ def compress_tiled(
     return _take_bytes(lib, out_ptr, out_len)
 
 
-def decompress(data: bytes) -> np.ndarray:
-    """(H, W[, 3]) uint8/uint16 image of an FLCS container."""
+def decompress(data: bytes, header: Optional[Header] = None) -> np.ndarray:
+    """(H, W[, 3]) uint8/uint16 image of an FLCS container. ``header`` is
+    the reference runtime's second argument and, as there, is not read:
+    the container's own header gives the shape and depth."""
     return _decode(data, lambda lib, buf, *out: lib.fel_decompress(buf, len(data), *out))
 
 
@@ -176,9 +179,19 @@ def _decode(data: bytes, call) -> np.ndarray:
     return arr.astype(dtype).reshape(shape)
 
 
+def available() -> bool:
+    """Whether the native library is built and loads. A probe only: the
+    codec calls raise without the library, and the API never takes this as
+    a cue to pick another codec."""
+    if not LIB_PATH.exists():
+        return False
+    _load()
+    return True
+
+
 def qoi_available() -> bool:
     """Whether the native library is built and has the QOI codec."""
-    return LIB_PATH.exists() and hasattr(_load(), "fel_qoi_encode")
+    return available() and hasattr(_load(), "fel_qoi_encode")
 
 
 def _qoi_lib() -> ctypes.CDLL:

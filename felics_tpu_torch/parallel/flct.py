@@ -23,6 +23,7 @@ all-zero priors. All integers are big-endian.
 
 from __future__ import annotations
 
+import math
 import struct
 from dataclasses import dataclass
 from typing import Optional, Tuple
@@ -80,7 +81,7 @@ def read_tiled_header(data: bytes) -> TiledHeader:
     # match n_tiles: a corrupt field would otherwise mis-slice the payload.
     if tw < 2 or th < 2:
         raise errors.InvalidDimensions(f"invalid tile dims {tw}x{th}")
-    expect_tiles = 0 if (w == 0 or h == 0) else (-(-h // th)) * (-(-w // tw))
+    expect_tiles = math.prod(TileConfig(th, tw).grid(h, w))
     if n_tiles != expect_tiles:
         raise errors.InvalidDimensions(
             f"tile grid mismatch: header says {n_tiles} tiles, dims imply "

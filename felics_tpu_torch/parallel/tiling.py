@@ -35,6 +35,7 @@ hi/lo split and its ``k0_device_exact`` gate have no counterpart here.
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 from typing import List, Optional, Sequence, Tuple
 
@@ -64,7 +65,7 @@ def image_tiles(imgs: torch.Tensor, th: int, tw: int) -> torch.Tensor:
     edge-pad to whole tiles, YCoCg-R for RGB, row-major tile order (the
     device mirror of the reference's _image_tiles_device/_prepare_tiles)."""
     n, h, w = imgs.shape[:3]
-    ty, tx = -(-h // th), -(-w // tw)
+    ty, tx = TileConfig(th, tw).grid(h, w)
     rows = torch.arange(ty * th, device=imgs.device).clamp(max=h - 1)
     cols = torch.arange(tx * tw, device=imgs.device).clamp(max=w - 1)
     x = imgs[:, rows][:, :, cols]
@@ -186,7 +187,8 @@ def encode_prepare(
         tiles = image_tiles(as_pixels(torch.stack(views)), th, tw)
     else:
         tiles = torch.cat([image_tiles(as_pixels(v)[None], th, tw) for v in views])
-    counts = [(-(-hd.height // th)) * (-(-hd.width // tw)) for hd in headers]
+    tc = TileConfig(th, tw)
+    counts = [math.prod(tc.grid(hd.height, hd.width)) for hd in headers]
     if k_prior:
         k0, prior = k0_prior(tiles, counts, th, tw, cfg)
     else:
@@ -368,7 +370,7 @@ def assemble_image(
     image too, even where they sit in tile padding, so a corrupt container
     is rejected the same way whichever image it lands in."""
     th, tw, c = hd.tile_h, hd.tile_w, hd.num_channels
-    ty, tx = -(-hd.height // th), -(-hd.width // tw)
+    ty, tx = TileConfig(th, tw).grid(hd.height, hd.width)
     lo, bound = plane_bounds(hd)
     planes_ok = ((bufs >= lo) & (bufs <= bound)).all()
     planes = (

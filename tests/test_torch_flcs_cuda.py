@@ -243,3 +243,72 @@ def test_kernels_take_the_shipped_k_counts(K, ok):
     else:
         with pytest.raises(ValueError, match="K in"):
             _build.check_kernel_k(K)
+
+
+# The edges of the 0..20 x 0..20 grid: rows 0, 1, 2 and 20, every width
+# 0..20, per class. Images of fewer than 2 pixels take the raw path and
+# launch nothing.
+EDGE_ROWS = (0, 1, 2, 20)
+EDGE_CLASSES = {"gray8": (np.uint8, ()), "gray16": (np.uint16, ()),
+                "rgb8": (np.uint8, (3,)), "rgb16": (np.uint16, (3,))}
+
+
+def _edge_row(h, cls):
+    dtype, extra = EDGE_CLASSES[cls]
+    rng = np.random.default_rng([h, list(EDGE_CLASSES).index(cls)])
+    hi = np.iinfo(dtype).max + 1
+    return [rng.integers(0, hi, (h, w) + extra).astype(dtype) for w in range(21)]
+
+
+@pytest.mark.parametrize("cls", list(EDGE_CLASSES))
+@pytest.mark.parametrize("h", EDGE_ROWS)
+def test_plain_versions_on_edge_rows(h, cls):
+    """The batched API on the CPU writes the oracle's bytes for the whole
+    row, and the scalar plain version of K4 decodes each payload of 2 or
+    more pixels to its planes, ending where the oracle ends."""
+    images = _edge_row(h, cls)
+    blobs = api.compress_images_bytes(images, device=CPU)
+    for img, blob in zip(images, blobs):
+        assert blob == api.compress_image_bytes(img, backend="oracle"), img.shape
+        if img.shape[0] * img.shape[1] < 2:
+            continue
+        planes, ih, iw, cfg = _planes(img, CPU)
+        words = torch.from_numpy(codec.payload_words([blob[14:]]).view(np.int32))
+        got = codec.decode_scan_scalar(words, ih, iw, cfg, planes.shape[0])
+        want, end = _oracle_decode(img, ih, iw, cfg, planes.shape[0])
+        assert torch.equal(got[0][0], planes) and torch.equal(want, planes)
+        assert int(got[1][0]) == end and not bool(got[2][0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cls", list(EDGE_CLASSES))
+@pytest.mark.parametrize("h", EDGE_ROWS)
+def test_cuda_kernels_on_edge_rows(cuda, h, cls):
+    """K3 and K4 on every shape of the row equal their plain versions (K4
+    the scalar one, and the tensor one up to 40 pixels), to the k, plane,
+    end bit and overrun flag; the batched API on the card
+    writes the oracle's bytes and decodes them exactly, and a row with no
+    image of 2 or more pixels launches no kernel."""
+    images = _edge_row(h, cls)
+    before = kscan.LAUNCHES, codec.DECODE_LAUNCHES
+    blobs = api.compress_images_bytes(images, device=cuda)
+    outs = api.decompress_images_bytes(blobs, device=cuda)
+    scans = sum(im.shape[0] * im.shape[1] >= 2 for im in images)
+    assert codec.DECODE_LAUNCHES - before[1] == scans
+    assert (kscan.LAUNCHES - before[0] == 0) if scans == 0 else (kscan.LAUNCHES > before[0])
+    for img, blob, out in zip(images, blobs, outs):
+        assert blob == api.compress_image_bytes(img, backend="oracle"), img.shape
+        assert out.dtype == img.dtype and np.array_equal(out, img)
+        if img.shape[0] * img.shape[1] < 2:
+            continue
+        planes, ih, iw, cfg = _planes(img, cuda)
+        c = planes.shape[0]
+        port = analysis.analyze_channel(planes, ih, iw)
+        su = kscan.sort_updates(port.context, port.oor)
+        assert torch.equal(kscan.kscan(port.residual, su, cfg).long(),
+                           kscan.kscan_ref(port.residual, su, cfg))
+        words = torch.from_numpy(codec.payload_words([blob[14:]]).view(np.int32)).to(cuda)
+        # the tensor plain version takes milliseconds a pixel on a card
+        plains = (codec.decode_scan_scalar,) + ((codec.decode_scan_ref,) if ih * iw <= 40 else ())
+        got = _decode_against_scalar(words, ih, iw, cfg, c, plains)
+        assert torch.equal(got[0][0], planes)

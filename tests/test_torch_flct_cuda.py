@@ -310,3 +310,77 @@ def test_cuda_dispatch_halves_do_not_wait(cuda):
     assert batch._encode_finish(enc) == blobs
     for im, out in zip(ims, batch._decode_finish(dec, cuda, False)):
         assert out.dtype == im.dtype and np.array_equal(out, im)
+
+
+# The edges of the 0..20 x 0..20 grid: rows 0, 1, 2 and 20, every width
+# 0..20, at the smallest tile (2x2), per class.
+EDGE_ROWS = (0, 1, 2, 20)
+EDGE_CLASSES = {"gray8": (np.uint8, ()), "gray16": (np.uint16, ()),
+                "rgb8": (np.uint8, (3,)), "rgb16": (np.uint16, (3,))}
+EDGE_TILE = TileConfig(2, 2)
+
+
+def _edge_row(h, cls):
+    dtype, extra = EDGE_CLASSES[cls]
+    rng = np.random.default_rng([h, list(EDGE_CLASSES).index(cls)])
+    hi = np.iinfo(dtype).max + 1
+    return [rng.integers(0, hi, (h, w) + extra).astype(dtype) for w in range(21)]
+
+
+def _edge_pending(images, device):
+    """The row's non-empty images encoded as the batched call encodes them
+    at 2x2 (one geometry group of mixed shapes): the pending after its
+    finish half, which holds the tiles, priors, word rows and bits."""
+    images = [im for im in images if im.size]
+    p = tiling.encode_dispatch(images, [header_for_array(im) for im in images],
+                               2, 2, True, device)
+    tiling.encode_finish(p)
+    return p
+
+
+@pytest.mark.parametrize("cls", list(EDGE_CLASSES))
+@pytest.mark.parametrize("h", EDGE_ROWS)
+def test_plain_versions_on_edge_rows(h, cls):
+    """The plain versions round-trip the row's tiles, and the oracle reads
+    their word rows as the tiles (row 0 has no tiles at all)."""
+    images = _edge_row(h, cls)
+    if h == 0:
+        assert all(im.size == 0 for im in images)
+        return
+    p = _edge_pending(images, CPU)
+    nt, c, _ = p.tiles.shape
+    assert nt == sum(-(-h // 2) * -(-im.shape[1] // 2) for im in images)
+    assert torch.equal(tcd.decode_tiles_ref(p.words, p.cfg, 2, 2, c, p.prior), p.tiles)
+    _oracle_planes(p.words, p.bits, p.tiles, p.prior, p.cfg, 2, 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cls", list(EDGE_CLASSES))
+@pytest.mark.parametrize("h", EDGE_ROWS)
+def test_cuda_kernels_on_edge_rows(cuda, h, cls):
+    """K1 and K2 on the row's tiles at 2x2 equal their plain versions, to
+    the word, bit count and plane; the batched pair on the card gives the
+    CPU's bytes and the images back; a row of zero-area images launches
+    no kernel."""
+    images = _edge_row(h, cls)
+    before = tcd.ENCODE_LAUNCHES, tcd.DECODE_LAUNCHES
+    blobs = batch.compress_tiled_batch(images, EDGE_TILE, device=cuda)
+    outs = batch.decompress_tiled_batch(blobs, device=cuda)
+    launched = tcd.ENCODE_LAUNCHES - before[0], tcd.DECODE_LAUNCHES - before[1]
+    # one geometry group: K2 once, K1 once (again if a stream outgrew the
+    # width hint); nothing for zero-area images
+    assert launched == (0, 0) if h == 0 else launched[0] >= 1 and launched[1] == 1
+    assert blobs == batch.compress_tiled_batch(images, EDGE_TILE, device=CPU)
+    for im, out in zip(images, outs):
+        assert out.dtype == im.dtype and np.array_equal(out, im)
+    if h == 0:
+        return
+    p = _edge_pending(images, cuda)
+    nt, c, _ = p.tiles.shape
+    wk, bk = tcd.encode_tiles(p.tiles, p.cfg, 2, 2, p.W, p.prior)
+    wr, br = tcd.encode_tiles_ref(p.tiles, p.cfg, 2, 2, p.W, p.prior)
+    assert torch.equal(wk, wr) and torch.equal(bk, br)
+    assert torch.equal(wk, p.words) and torch.equal(bk, p.bits)
+    dk = tcd.decode_tiles(wk, p.cfg, 2, 2, c, p.prior)
+    assert torch.equal(dk, tcd.decode_tiles_ref(wk, p.cfg, 2, 2, c, p.prior))
+    assert torch.equal(dk, p.tiles)

@@ -5,6 +5,7 @@ copy. On the CPU; tolerance zero (bytes, integers, class names).
 """
 
 import inspect
+import io
 import os
 import struct
 import subprocess
@@ -204,3 +205,73 @@ def test_native_binding_matches_reference_runtime(native_lib, idx):
         native.decompress(blob[:-1] if idx < 2 else blob[:15])
     with pytest.raises(ref_errors.IoError):
         native_lib.decompress(blob[:-1] if idx < 2 else blob[:15], ref_hd)
+
+
+GRIDS = [((16, 16), 0, 5), ((16, 16), 5, 0), ((16, 16), 0, 0), ((4, 3), 9, 7),
+         ((64, 64), 1, 1), ((2, 2), 20, 20), ((7, 5), 14, 15), ((64, 64), 100, 3)]
+
+
+@pytest.mark.parametrize("tile,height,width", GRIDS)
+def test_tile_grid_matches_reference(tile, height, width):
+    """TileConfig.grid: ceil-divide, and 0 along a zero dimension."""
+    got = config.TileConfig(*tile).grid(height, width)
+    assert got == ref_config.TileConfig(*tile).grid(height, width)
+
+
+MAGICS = [format.MAGIC, b"FLCT", b"TEST"]
+
+
+@pytest.mark.parametrize("magic", MAGICS)
+def test_read_header_magic_matches_reference(magic):
+    """read_header / read_header_bytes take the signature to expect, and
+    raise InvalidSignature on any other, as felics_tpu's do."""
+    img = np.zeros((3, 4, 3), np.uint16)
+    blob = format.header_bytes(format.header_for_array(img), magic)
+    assert blob == ref_format.header_bytes(ref_api.header_for_array(img), magic)
+    for read, ref_read, arg in (
+        (format.read_header_bytes, ref_format.read_header_bytes, blob),
+        (format.read_header, ref_format.read_header, None),
+    ):
+        got = read(io.BytesIO(blob) if arg is None else arg, magic=magic)
+        want = ref_read(io.BytesIO(blob) if arg is None else arg, magic=magic)
+        assert (int(got.color_type), int(got.pixel_depth), got.width, got.height) == (
+            int(want.color_type), int(want.pixel_depth), want.width, want.height)
+        other = b"XXXX" if magic != b"XXXX" else b"YYYY"
+        with pytest.raises(ref_errors.InvalidSignature):
+            ref_read(io.BytesIO(blob) if arg is None else arg, magic=other)
+        with pytest.raises(errors.InvalidSignature):
+            read(io.BytesIO(blob) if arg is None else arg, magic=other)
+
+
+def test_native_available_matches_reference(native_lib, monkeypatch, tmp_path):
+    """native.available() is a probe: true once the library is built, as
+    felics_tpu's runtime says; without the library it is false, and
+    backend="native" still raises rather than pick another codec."""
+    assert native.available() is native_lib.available() is True
+    img = np.zeros((2, 3), np.uint8)
+    monkeypatch.setattr(native, "LIB_PATH", tmp_path / "missing.so")
+    monkeypatch.setattr(native, "_lib", None)
+    assert native.available() is False and native.qoi_available() is False
+    with pytest.raises(RuntimeError, match="not built"):
+        api.compress_image_bytes(img, backend="native")
+
+
+@pytest.mark.parametrize("idx", range(4))
+def test_native_decompress_takes_the_reference_call(native_lib, idx):
+    """native.decompress(data, header) as felics_tpu's runtime takes it:
+    the header argument is not read, so a wrong one changes nothing, and
+    the one-argument call gives the same image."""
+    rng = np.random.default_rng(40 + idx)
+    shape, dtype = [((9, 11), np.uint8), ((7, 5, 3), np.uint16), ((1, 1), np.uint8),
+                    ((2, 40, 3), np.uint8)][idx]
+    img = rng.integers(0, np.iinfo(dtype).max + 1, shape).astype(dtype)
+    hd, ref_hd = format.header_for_array(img), ref_api.header_for_array(img)
+    blob = native.compress(img, hd)
+    other = format.header_for_array(np.zeros((3, 3), np.uint8))
+    want = native_lib.decompress(blob, ref_hd)
+    for got in (native.decompress(blob, hd), native.decompress(blob, other),
+                native.decompress(blob)):
+        assert got.dtype == want.dtype == img.dtype
+        assert np.array_equal(got, want) and np.array_equal(got, img)
+    with pytest.raises(errors.IoError):
+        native.decompress(blob[:13], hd)
