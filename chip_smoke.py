@@ -5,6 +5,7 @@
     python3 chip_smoke.py --stages   # FLCS stage breakdown and idle share
     python3 chip_smoke.py --flct     # FLCT kernels and main path alone
     python3 chip_smoke.py --stream   # FLCT stream vs one-shot, profiled
+    python3 chip_smoke.py --graphs   # phase 11 alone: FLCT graphs vs eager
 
 Phases, one line each, any failure exits non-zero and prints no result:
 
@@ -24,7 +25,8 @@ Phases, one line each, any failure exits non-zero and prints no result:
    gray8 at tile 64; then each class at tile 32, and gray8 at tiles 64
    and 256, through compress_tiled_batch / decompress_tiled_batch on
    device="cuda": exact round trips, containers byte-identical to the
-   native C++ FLCT codec, both kernels launched (counters), times from
+   native C++ FLCT codec, both kernels launched (counters) and both
+   directions' graphs replayed (after GRAPH_WARM warm calls), times from
    CUDA events;
 4. corrupt payloads: flipped bytes in gray8 and rgb8 containers, FLCT and
    (after phase 6) FLCS, decode to an image of the right shape or raise
@@ -105,20 +107,34 @@ Phases, one line each, any failure exits non-zero and prints no result:
    versions (on the CPU, on the same inputs) on each class's batch at
    tile 2x2 and on its 1xN and Nx1 rows at 4x3 and 64x64, and K3 and K4
    against kscan_ref and decode_scan_scalar on those rows, exact to the
-   word, bit count, k, plane and end bit.
+   word, bit count, k, plane and end bit;
+11. the CUDA graphs of the same-shape FLCT chains (parallel/graphs.py):
+   gray8 12x512^2 at tiles 32 and 64, rgb8 8x512^2x3 and gray16 4x512^2
+   through the batched pair and the stream pair on the graph path
+   (containers byte-identical to the eager chain's and the native codec's,
+   exact decodes, graphs replayed, K1 and K2 counted inside the replays),
+   then timed beside the same calls on the eager chains in one call
+   (one-shot, and phase 7's stream at depth 2 and 1 and back-to-back
+   batched calls; best of 3 after warm calls, in turns eager, graph,
+   graph, eager), with the host's launch and copy calls and the device's
+   idle share of one profiled one-shot call a direction and mode, and the
+   graphs' pool bytes.
 
 No module of JAX or of the JAX package felics_tpu is imported; the native
 codec is reached through felics_tpu_torch.native (native/build.py builds
 it). Each kernel's entry in the kernels line carries its time and its
 plain version's at the main path's shape, its bound (bytes at 3.35 TB/s
-against operations), its launches on the main path and per call, and its
-launches on phase 8's sharded paths and CLIs and in phases 9 and 10.
+against operations), its launches on the main path and per call, its
+launches on phase 8's sharded paths and CLIs and in phases 9 and 10, and
+the graph replays and captures of its direction on the main path and in
+phase 11 (with phase 11's launches).
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import re
@@ -146,6 +162,12 @@ WORKER_SECONDS = 240
 # odd one and one wider than every image of the grid.
 EDGE_SIDES = range(21)
 EDGE_TILES = ((2, 2), (4, 3), (64, 64))
+# Phase 11 (and the warm-up of timed FLCT calls): a same-shape group's key
+# runs eagerly at its first sighting and is captured at its second; a hint
+# that moves after the first call makes a new key. Three calls of a batch
+# leave it replaying its graph. The classes and tiles phase 11 measures.
+GRAPH_WARM = 3
+GRAPH_RUNS = (("gray8", 32), ("gray8", 64), ("rgb8", 32), ("gray16", 32))
 # H100 SXM peaks (NVIDIA's data sheet, at a 700 W limit): HBM3 bytes a
 # second, and float32 operations a second outside the tensor cores, the
 # nearest entry to the kernels' 32-bit integer operations.
@@ -281,13 +303,16 @@ def flct_main_path(np, torch, dev, images, tile, reps: int = 5):
     """One batch through compress_tiled_batch / decompress_tiled_batch on the
     card: exact round trips and containers byte-identical to the native C++
     codec, or fail; ms from CUDA events (mean and best of `reps` calls after
-    a warm one). Returns the containers and a row of numbers."""
+    GRAPH_WARM warm ones, which capture the batch's graphs). Returns the
+    containers and a row of numbers."""
     from felics_tpu_torch import compress_tiled_batch, decompress_tiled_batch, native
     from felics_tpu_torch.config import TileConfig
     from felics_tpu_torch.format import header_for_array
 
     tc = TileConfig(tile, tile)
-    blobs = compress_tiled_batch(images, tc, device=dev)  # warm
+    for _ in range(GRAPH_WARM):  # warm: a same-shape group's graph is captured
+        blobs = compress_tiled_batch(images, tc, device=dev)
+        decompress_tiled_batch(blobs, device=dev)
     enc = call_ms(torch, lambda: compress_tiled_batch(images, tc, device=dev), reps)
     dec = call_ms(torch, lambda: decompress_tiled_batch(blobs, device=dev), reps)
     (enc_ms, enc_best), (dec_ms, dec_best) = enc, dec
@@ -1202,6 +1227,167 @@ def edges(np, torch, dev, card) -> dict:
     return launches
 
 
+@contextlib.contextmanager
+def eager_chains():
+    """Every FLCT group on the eager chains (tiling.encode_dispatch /
+    decode_dispatch) while the context lasts: the entry points as they ran
+    before the graph cache, to time beside it in one call."""
+    from felics_tpu_torch.parallel import tiling
+
+    saved = tiling.encode_group_dispatch, tiling.decode_group_dispatch
+    tiling.encode_group_dispatch = tiling.encode_dispatch
+    tiling.decode_group_dispatch = tiling.decode_dispatch
+    try:
+        yield
+    finally:
+        tiling.encode_group_dispatch, tiling.decode_group_dispatch = saved
+
+
+def host_launches(prof) -> dict:
+    """Calls of the CUDA runtime's launch and copy functions in a
+    profiled window, by name (kernel launches, graph launches, copies)."""
+    return {e.key: e.count for e in prof.key_averages()
+            if e.key.startswith("cu") and ("Launch" in e.key or "Memcpy" in e.key)}
+
+
+def graph_phase(np, torch, dev, card, classes) -> dict:
+    """Phase 11, the CUDA graphs of the same-shape FLCT chains: for each
+    of GRAPH_RUNS, the batched pair and phase 7's stream calls on the
+    graph path and on the eager chains (eager_chains), in one call:
+    containers byte-identical to the native codec and to the eager chain,
+    exact decodes, K1 and K2 run inside the replays (counters, and the
+    profiler's kernels under a graph launch); best ms of 3 calls (CUDA
+    events, after GRAPH_WARM warm calls) of each mode in turns eager,
+    graph, graph, eager; host launches a call and the device's idle share
+    of one profiled one-shot call a direction; the graphs' pool bytes.
+    Returns the K1/K2 launches and the replays and captures of the graph
+    runs alone: each count set to 0 just before them and read just after."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from felics_tpu_torch import compress_tiled_batch, decompress_tiled_batch, native
+    from felics_tpu_torch.config import TileConfig
+    from felics_tpu_torch.format import header_for_array
+    from felics_tpu_torch.ops import tile_codec as tcd
+    from felics_tpu_torch.parallel import graphs
+
+    t11 = time.perf_counter()
+    by_name = dict(classes)
+    counts = {"encode": 0, "decode": 0, "replays": {"encode": 0, "decode": 0},
+              "captures": {"encode": 0, "decode": 0}}
+    for name, tile in GRAPH_RUNS:
+        images = by_name[name]
+        tc = TileConfig(tile, tile)
+        n = STREAM_CHUNKS[name]
+        chunks = [images[i : i + n] for i in range(0, len(images), n)]
+        with eager_chains():
+            eager_blobs = compress_tiled_batch(images, tc, device=dev)
+        for im, blob in zip(images, eager_blobs):
+            if blob != native.compress_tiled(im, header_for_array(im), tile, tile):
+                fail(f"graphs {name} t{tile}: the eager chain's container differs from native")
+
+        # The graph path, counted: warm calls, then checked calls that replay.
+        tcd.ENCODE_LAUNCHES = tcd.DECODE_LAUNCHES = 0
+        for d in ("encode", "decode"):
+            graphs.REPLAYS[d] = graphs.CAPTURES[d] = 0
+        for _ in range(GRAPH_WARM + 1):
+            blobs = compress_tiled_batch(images, tc, device=dev)
+            outs = decompress_tiled_batch(blobs, device=dev)
+            if blobs != eager_blobs:
+                fail(f"graphs {name} t{tile}: containers differ from the eager chain's")
+            if any(o.dtype != im.dtype or not np.array_equal(o, im)
+                   for o, im in zip(outs, images)):
+                fail(f"graphs {name} t{tile}: a decode is not exact")
+        streamed = graph_stream_checked(np, dev, tc, chunks, eager_blobs, images)
+        launched = {"encode": tcd.ENCODE_LAUNCHES, "decode": tcd.DECODE_LAUNCHES,
+                    "replays": dict(graphs.REPLAYS), "captures": dict(graphs.CAPTURES)}
+        if not (launched["replays"]["encode"] and launched["replays"]["decode"]
+                and launched["encode"] and launched["decode"]):
+            fail(f"graphs {name} t{tile}: no replay, or K1/K2 never ran: {launched}")
+        for k in ("encode", "decode"):
+            counts[k] += launched[k]
+            counts["replays"][k] += launched["replays"][k]
+            counts["captures"][k] += launched["captures"][k]
+
+        calls = stream_calls(tc, dev, images, chunks, eager_blobs, streamed)
+        best: dict = {}
+        for mode in ("eager", "graph", "graph", "eager"):
+            with eager_chains() if mode == "eager" else contextlib.nullcontext():
+                for call, fn in calls.items():
+                    for _ in range(GRAPH_WARM):
+                        fn()
+                    ms = call_ms(torch, fn, 3)[1]
+                    best[(mode, call)] = min(best.get((mode, call), ms), ms)
+        px = sum(im.shape[0] * im.shape[1] for im in images)
+        row = {}
+        for mode in ("eager", "graph"):
+            for run in ("one_shot", "stream", "stream_d1", "batched"):
+                e, d = best[(mode, f"{run}_encode")], best[(mode, f"{run}_decode")]
+                row[f"{mode}_{run}_encode_ms"] = e
+                row[f"{mode}_{run}_decode_ms"] = d
+                row[f"{mode}_{run}_mpx_s"] = 2 * px / (e + d) / 1e3
+            row[f"{mode}_d2_over_b2b"] = row[f"{mode}_stream_mpx_s"] / row[f"{mode}_batched_mpx_s"]
+            row[f"{mode}_b2b_over_one_shot"] = (row[f"{mode}_batched_mpx_s"]
+                                                / row[f"{mode}_one_shot_mpx_s"])
+            # One profiled one-shot call a direction (after warm calls):
+            # host launches, the kernels the device ran, the idle share.
+            for d, fn in (("encode", calls["one_shot_encode"]),
+                          ("decode", calls["one_shot_decode"])):
+                with eager_chains() if mode == "eager" else contextlib.nullcontext():
+                    fn()
+                    fn()
+                    torch.cuda.synchronize()
+                    with profile(activities=[ProfilerActivity.CPU,
+                                             ProfilerActivity.CUDA]) as prof:
+                        t0 = time.perf_counter()
+                        fn()
+                        torch.cuda.synchronize()
+                        wall_us = (time.perf_counter() - t0) * 1e6
+                kernel = "flct_encode_kernel" if d == "encode" else "flct_decode_kernel"
+                row[f"{mode}_{d}_host_calls"] = host_launches(prof)
+                row[f"{mode}_{d}_device_kernels"] = sum(
+                    1 for e in prof.events() if e.device_type.name == "CUDA"
+                    and "Memcpy" not in e.name and "Memset" not in e.name)
+                row[f"{mode}_{d}_{kernel}"] = sum(
+                    1 for e in prof.events()
+                    if e.device_type.name == "CUDA" and kernel in e.name)
+                row[f"{mode}_{d}_idle_share"] = 1 - device_busy_us(prof) / wall_us
+                row[f"{mode}_{d}_profiled_wall_ms"] = wall_us / 1e3
+                row[f"{mode}_{d}_top_host_self_ms"] = [
+                    [e.key, e.self_cpu_time_total / 1e3, e.count] for e in sorted(
+                        prof.key_averages(), key=lambda e: e.self_cpu_time_total,
+                        reverse=True)[:6]]
+            if not row[f"{mode}_encode_flct_encode_kernel"] or not row[
+                    f"{mode}_decode_flct_decode_kernel"]:
+                fail(f"graphs {name} t{tile} {mode}: the profiler saw no K1 or K2")
+        say("11 graphs", nvidia_smi=card, cls=name, tile=tile, images=len(images),
+            chunk=n, launches=launched, bytes_equal_native=True, bytes_equal_eager=True,
+            exact_round_trip=True, **row)
+    pools = [{"key": [str(k) for k in g.key[:8]], "pool_bytes": g.pool_bytes,
+              "input_bytes": g.dev_in.numel()} for g in graphs.cache(dev).graphs]
+    say("11 pools", nvidia_smi=card, graphs=len(pools),
+        pool_bytes=sum(p["pool_bytes"] for p in pools),
+        input_bytes=sum(p["input_bytes"] for p in pools),
+        max_bytes=graphs.cache(dev).max_bytes, by_graph=pools,
+        seconds=time.perf_counter() - t11)
+    return counts
+
+
+def graph_stream_checked(np, dev, tc, chunks, blobs, images):
+    """Phase 11: the stream pair on the graph path over the chunks, held to
+    the eager containers and to the images; returns the streamed batches."""
+    from felics_tpu_torch import compress_tiled_stream, decompress_tiled_stream
+
+    for _ in range(GRAPH_WARM):
+        streamed = compress_tiled_stream(iter(chunks), tc, depth=STREAM_DEPTH, device=dev)
+        outs = decompress_tiled_stream(iter(streamed), depth=STREAM_DEPTH, device=dev)
+        if [b for batch in streamed for b in batch] != blobs:
+            fail("graphs: the stream's containers differ from the eager chain's")
+        if any(not np.array_equal(o, im)
+               for o, im in zip([o for batch in outs for o in batch], images)):
+            fail("graphs: a streamed decode is not exact")
+    return streamed
+
+
 def profiled(torch, fn, kernel: str):
     """fn()'s result and the device ms of the kernels whose name holds
     `kernel` in that one call, from torch.profiler (None when it saw no
@@ -1269,7 +1455,7 @@ def main() -> None:
     from felics_tpu_torch.format import PixelDepth, header_for_array
     from felics_tpu_torch.ops import _build
     from felics_tpu_torch.ops import tile_codec as tcd
-    from felics_tpu_torch.parallel import flct, tiling
+    from felics_tpu_torch.parallel import flct, graphs, tiling
 
     dev = torch.device("cuda")
     card = smi()
@@ -1451,6 +1637,8 @@ def main() -> None:
     # K2 thread a tile).
     tcd.ENCODE_LAUNCHES = 0
     tcd.DECODE_LAUNCHES = 0
+    for d in ("encode", "decode"):
+        graphs.REPLAYS[d] = graphs.CAPTURES[d] = 0
     blobs_by_class = {}
     runs = [(name, images, TILE) for name, images in classes]
     runs += [("gray8", classes[0][1], 64), ("gray8", classes[0][1], 256)]
@@ -1460,8 +1648,12 @@ def main() -> None:
             blobs_by_class[name] = (images, blobs)
         say("3 main path", nvidia_smi=card, cls=name, **row)
     launches = {"encode": tcd.ENCODE_LAUNCHES, "decode": tcd.DECODE_LAUNCHES}
+    main_graphs = {"replays": dict(graphs.REPLAYS), "captures": dict(graphs.CAPTURES)}
     if not (launches["encode"] and launches["decode"]):
         fail(f"the main path did not launch both kernels: {launches}")
+    if not (main_graphs["replays"]["encode"] and main_graphs["replays"]["decode"]):
+        fail(f"the main path replayed no graph: {main_graphs}")
+    say("3 graphs", **main_graphs)
     # Launches in one batched call of each direction (the gray8 batch).
     tc = TileConfig(TILE, TILE)
     g8 = classes[0][1]
@@ -1778,6 +1970,9 @@ def main() -> None:
     # ---- phase 10: the edges of the 0..20 grid through K1-K4 ---------------
     edge = edges(np, torch, dev, card)
 
+    # ---- phase 11: the CUDA graphs of the same-shape FLCT chains ----------
+    graphed = graph_phase(np, torch, dev, card, classes)
+
     foreign =[m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "felics_tpu")]
     if foreign:
         fail(f"modules of JAX or of the JAX package were imported: {foreign[:5]}")
@@ -1808,7 +2003,12 @@ def main() -> None:
               bound_ms_by_class={c: r["encode_bound"][0] for c, r in kt.items()},
               stream_launches=stream_launches["encode"],
               sharded_launches=sharded["encode"], cli_launches=cli["encode"],
-              host_backend_launches=hosted["encode"], edge_launches=edge["encode"]),
+              host_backend_launches=hosted["encode"], edge_launches=edge["encode"],
+              graph_replays=main_graphs["replays"]["encode"],
+              graph_captures=main_graphs["captures"]["encode"],
+              graph_phase_launches=graphed["encode"],
+              graph_phase_replays=graphed["replays"]["encode"],
+              graph_phase_captures=graphed["captures"]["encode"]),
         entry("flct_decode", "felics_tpu/ops/pallas_codec.py:805", launches["decode"],
               per_call["decode"], errs["decode"], g8k["decode_ms"],
               g8k["decode_plain_ms"], g8k["decode_bound"], shape=flct_shape,
@@ -1820,6 +2020,11 @@ def main() -> None:
               stream_launches=stream_launches["decode"],
               sharded_launches=sharded["decode"], cli_launches=cli["decode"],
               host_backend_launches=hosted["decode"], edge_launches=edge["decode"],
+              graph_replays=main_graphs["replays"]["decode"],
+              graph_captures=main_graphs["captures"]["decode"],
+              graph_phase_launches=graphed["decode"],
+              graph_phase_replays=graphed["replays"]["decode"],
+              graph_phase_captures=graphed["captures"]["decode"],
               # the 64-bit-position instantiation, on the long row
               wide_launches=long_row["decode_wide_launches"],
               wide_decode_s=long_row["decode_s"], wide_kernel_ms=long_row["k2_kernel_ms"]),
@@ -2002,6 +2207,16 @@ def stream_trace() -> None:
                                      for e in top]}), flush=True)
 
 
+def graphs_only() -> None:
+    """Phase 11 alone (the CUDA graphs of the same-shape FLCT chains beside
+    the eager chains), after the native codec's build."""
+    np, torch = need_gpu_and_repo()
+    subprocess.run([sys.executable, os.path.join(REPO, "native", "build.py")],
+                   check=True, capture_output=True)
+    counts = graph_phase(np, torch, torch.device("cuda"), smi(), flct_classes(np))
+    print(json.dumps({"graph_phase": counts}), flush=True)
+
+
 def flct_only() -> None:
     """FLCT alone, to compare two trees in one call: K1 and K2 timed at each
     class's batch shape (tile 32) and on gray8 at tile 64, then each class
@@ -2030,6 +2245,8 @@ if __name__ == "__main__":
         flct_only()
     elif sys.argv[1:] == ["--stream"]:
         stream_trace()
+    elif sys.argv[1:] == ["--graphs"]:
+        graphs_only()
     elif sys.argv[1:2] == ["--worker"]:  # a rank of phase 8's process groups
         backend, address, world, rank, out_dir = sys.argv[2:]
         group_worker(backend, address, int(world), int(rank), out_dir)

@@ -108,17 +108,33 @@ def upload_image(image: np.ndarray, device: torch.device) -> torch.Tensor:
     return as_pixels(upload([image], device)[0])
 
 
+def pack(*tensors: torch.Tensor) -> Tuple[torch.Tensor, List[Tuple]]:
+    """Several tensors' bytes, concatenated on their device (one op), and
+    the (dtype, shape, byte count) of each, for ``unpack``."""
+    flat = [t.contiguous().reshape(-1).view(torch.uint8) for t in tensors]
+    specs = [(t.dtype, tuple(t.shape), f.numel()) for t, f in zip(tensors, flat)]
+    return torch.cat(flat), specs
+
+
+def unpack(buf: np.ndarray, specs: Sequence[Tuple]) -> List[np.ndarray]:
+    """numpy views of the tensors ``pack`` concatenated into ``buf``."""
+    out, off = [], 0
+    for dtype, shape, n in specs:
+        out.append(buf[off : off + n].view(_NP_DTYPES[dtype]).reshape(shape))
+        off += n
+    return out
+
+
 class HostCopy:
     """Several device tensors copied to the host in ONE transfer (their
     bytes are concatenated on the device). On CUDA the copy goes into
     pinned memory without waiting, followed by an event; ``wait()`` blocks
     on that event and returns numpy arrays of the tensors' dtypes and
-    shapes."""
+    shapes. ``release()`` says the caller is done with those arrays (a
+    no-op here; a graph replay's result hands its buffers back then)."""
 
     def __init__(self, *tensors: torch.Tensor):
-        flat = [t.contiguous().reshape(-1).view(torch.uint8) for t in tensors]
-        self.specs = [(t.dtype, tuple(t.shape), f.numel()) for t, f in zip(tensors, flat)]
-        dev_buf = torch.cat(flat)
+        dev_buf, self.specs = pack(*tensors)
         self.event = None
         if dev_buf.is_cuda:
             self.buf = torch.empty(dev_buf.numel(), dtype=torch.uint8, pin_memory=True)
@@ -131,12 +147,10 @@ class HostCopy:
     def wait(self) -> List[np.ndarray]:
         if self.event is not None:
             self.event.synchronize()
-        buf = self.buf.numpy()
-        out, off = [], 0
-        for dtype, shape, n in self.specs:
-            out.append(buf[off : off + n].view(_NP_DTYPES[dtype]).reshape(shape))
-            off += n
-        return out
+        return unpack(self.buf.numpy(), self.specs)
+
+    def release(self) -> None:
+        pass
 
 
 def to_host(*tensors: torch.Tensor) -> List[np.ndarray]:

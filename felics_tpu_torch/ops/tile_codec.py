@@ -34,15 +34,35 @@ from felics_tpu_torch.ops.bits import (
 # Kernel launches made by encode_tiles / decode_tiles (plain-version calls
 # are not counted); DECODE_WIDE_LAUNCHES counts the decode launches that
 # took the 64-bit-position instantiation (decode_wide_positions). Callers
-# reset them to 0 to see what a run launched.
+# reset them to 0 to see what a run launched. A launch made while a CUDA
+# graph is captured is recorded into the graph, not run: it goes into
+# CAPTURED instead, and the graph counts it at each replay
+# (parallel/graphs.py).
 ENCODE_LAUNCHES = 0
 DECODE_LAUNCHES = 0
 DECODE_WIDE_LAUNCHES = 0
+CAPTURED = {"encode": 0, "decode": 0, "wide": 0}
 
 DECODE_MIN_BLOCKS = 384  # flct_decode.cu: blocks to aim for (~3 per SM of an H100)
 
 _I32_MIN, _I32_MAX = -(1 << 31), (1 << 31) - 1
 _SPILL = 16  # word-count alignment of encode_width_bound (reference format)
+
+
+def count_launches(encode: int = 0, decode: int = 0, wide: int = 0) -> None:
+    """Add kernel runs to the launch counts."""
+    global ENCODE_LAUNCHES, DECODE_LAUNCHES, DECODE_WIDE_LAUNCHES
+    ENCODE_LAUNCHES += encode
+    DECODE_LAUNCHES += decode
+    DECODE_WIDE_LAUNCHES += wide
+
+
+def _launched(**counts: int) -> None:
+    if torch.cuda.is_current_stream_capturing():
+        for k, v in counts.items():
+            CAPTURED[k] += v
+    else:
+        count_launches(**counts)
 
 
 def num_buckets(cfg: CodingConfig) -> int:
@@ -282,7 +302,6 @@ def encode_tiles(
     """Encode (n, C, t) int32 tiles into (words (n, W) int32, bits (n,)
     int64). CUDA tensors launch flct_encode.cu; CPU tensors run
     ``encode_tiles_ref``."""
-    global ENCODE_LAUNCHES
     if tiles.dim() != 3 or tiles.dtype != torch.int32:
         raise ValueError("tiles must be an (n, C, t) int32 tensor")
     n, c, t = tiles.shape
@@ -310,7 +329,7 @@ def encode_tiles(
             torch.cuda.current_stream().cuda_stream,
         )
     _build.check(code, "flct_encode")
-    ENCODE_LAUNCHES += 1
+    _launched(encode=1)
     return words, bits
 
 
@@ -446,7 +465,6 @@ def decode_tiles(
     tensors launch flct_decode.cu (its 64-bit-position instantiation for
     rows that ``decode_wide_positions`` calls long); CPU tensors run
     ``decode_tiles_ref``."""
-    global DECODE_LAUNCHES, DECODE_WIDE_LAUNCHES
     if words.dim() != 2 or words.dtype != torch.int32:
         raise ValueError("words must be an (n, W) int32 tensor")
     n, W = words.shape
@@ -476,6 +494,5 @@ def decode_tiles(
             torch.cuda.current_stream().cuda_stream,
         )
     _build.check(code, "flct_decode")
-    DECODE_LAUNCHES += 1
-    DECODE_WIDE_LAUNCHES += int(wide)
+    _launched(decode=1, wide=int(wide))
     return out

@@ -5,12 +5,15 @@ Counterpart: felics_tpu/parallel/batch.py (``compress_tiled_batch``,
 the pipelined pair ``compress_tiled_stream`` / ``decompress_tiled_stream``).
 Members are grouped by geometry (tile dims, channel count, depth); each
 group runs one k0 pass and one kernel launch over all its tiles, with
-per-tile priors, and one copy back to the host. A call dispatches every
-group (``tiling.encode_dispatch`` / ``decode_dispatch``, which never wait on
-the device) before it finishes any, and the stream keeps up to ``depth``
-batches dispatched and unfinished, each on a CUDA stream of its own, so one
-batch's copies and host work overlap another's kernels. Every container
-equals the one ``tiling.compress_tiled_bytes`` makes for that image alone.
+per-tile priors, and one copy back to the host; on CUDA a same-shape group
+replays its key's CUDA graph from the key's second sighting on
+(``graphs.py``). A call dispatches every group
+(``tiling.encode_group_dispatch`` / ``decode_group_dispatch``, which never
+wait on the device) before it finishes any, and the stream keeps up to
+``depth`` batches dispatched and unfinished, each on a CUDA stream of its
+own, so one batch's copies and host work overlap another's kernels; two
+batches in flight under one key replay two graphs. Every container equals
+the one ``tiling.compress_tiled_bytes`` makes for that image alone.
 """
 
 from __future__ import annotations
@@ -62,7 +65,7 @@ def _encode_dispatch(images: Sequence[np.ndarray], tile: TileConfig, dev):
     encode dispatched: (out, [(member indices, pending)])."""
     headers, out, groups = geometry_groups(images, tile)
     pending = [
-        (idx, tiling.encode_dispatch(
+        (idx, tiling.encode_group_dispatch(
             [images[i] for i in idx], [headers[i] for i in idx], th, tw, True, dev))
         for (th, tw, _, _), idx in groups.items()
     ]
@@ -136,7 +139,7 @@ def _decode_dispatch(datas: Sequence[bytes], dev, isolate: bool):
     pending = []
     for idx in groups.values():
         try:
-            p = tiling.decode_dispatch(
+            p = tiling.decode_group_dispatch(
                 [members[i][0] for i in idx], [members[i][1] for i in idx], dev)
         except errors.DecompressionError as e:
             if not isolate:

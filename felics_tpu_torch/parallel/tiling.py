@@ -1,9 +1,11 @@
 """FLCT tiled container on one device, both directions.
 
 Counterpart: felics_tpu/parallel/tiling.py (``compress_tiled_bytes``,
-``decompress_tiled_bytes``, and the dispatch/finish halves of its device
+``decompress_tiled_bytes``, the dispatch/finish halves of its device
 chains, ``encode_container_dispatch``/``encode_container_finish`` and
-``decode_container_dispatch``/``decode_container_finish``).
+``decode_container_dispatch``/``decode_container_finish``, and its
+single-dispatch same-shape chains ``encode_images_dispatch`` /
+``decode_images_dispatch``).
 
 Each direction is a dispatch half, which enqueues the whole device chain and
 never waits on the device, and a finish half, which waits on the chain's
@@ -16,10 +18,19 @@ hint, redo the compaction at the exact size if it outgrew the capacity,
 then strip the alignment and pack the containers. Decode dispatch: one
 staged upload of the payload, length table, priors and tile owners; (n,
 wd) word rows; the decode kernel; crop, inverse YCoCg and a range check on
-the device; one copy to pinned host memory. Decode finish: wait, and hand
-back the images with a validity flag each. ``*_group`` runs the two halves
-back to back; the batched and streamed calls in ``batch.py`` interleave
-them. Container bytes do not depend on the hints.
+the device (one pass over a same-shape batch); one copy to pinned host
+memory. Decode finish: wait, and hand back the images with a validity flag
+each. ``*_group`` runs the two halves back to back; the batched and
+streamed calls in ``batch.py`` interleave them. Container bytes do not
+depend on the hints.
+
+``encode_dispatch`` / ``decode_dispatch`` are the eager chains. The entry
+points go through ``encode_group_dispatch`` / ``decode_group_dispatch``:
+on CUDA a same-shape group has a key (``encode_key`` / ``decode_key``,
+the reference's jit keys), runs the eager chain the first time the key is
+seen, and from the second time replays the key's CUDA graph of the same
+chain (``graphs.py``), fed from and copied back into static pinned
+buffers; other groups, and the CPU, run the eager chain.
 
 The halves are built from pieces the sharded paths (``mesh.py``,
 ``multihost.py``) run on slices of tiles: ``encode_prepare`` (upload,
@@ -45,14 +56,15 @@ import torch
 from felics_tpu_torch import errors
 from felics_tpu_torch.config import CodingConfig, TileConfig, tiled_config_for_depth
 from felics_tpu_torch.core.color import rgb_to_ycocg, ycocg_to_rgb
+from felics_tpu_torch.core.context import neighbour_indices
 from felics_tpu_torch.device import (
-    HostCopy, as_pixels, neighbours, on_device, resolve_device, stage,
+    HostCopy, as_pixels, on_device, resolve_device, stage,
     staged_views, upload,
 )
 from felics_tpu_torch.format import ColorType, Header, PixelDepth, header_for_array
 from felics_tpu_torch.ops import tile_codec
 from felics_tpu_torch.ops.bits import bit_length, words_to_bytes
-from felics_tpu_torch.parallel import flct
+from felics_tpu_torch.parallel import flct, graphs
 
 
 # ---------------------------------------------------------------------------
@@ -83,6 +95,33 @@ def image_tiles(imgs: torch.Tensor, th: int, tw: int) -> torch.Tensor:
     )
 
 
+_tile_neighbours: dict = {}  # (th, tw, device) -> a tile's neighbour indices
+
+
+def tile_neighbours(th: int, tw: int, device: torch.device) -> tuple:
+    """The two causal neighbour indices of a th x tw tile's pixels on
+    ``device``, made at first use with a blocking copy and kept: every
+    stream may read them, and so may a graph, whose capture cannot
+    upload."""
+    key = (th, tw, str(device))
+    if key not in _tile_neighbours:
+        _tile_neighbours[key] = tuple(
+            torch.from_numpy(i.astype(np.int64)).to(device)
+            for i in neighbour_indices(th, tw))
+    return _tile_neighbours[key]
+
+
+def image_of_tile(counts: Sequence[int], device: torch.device) -> torch.Tensor:
+    """(nt,) int64 owner image of each tile, ``counts[i]`` tiles for image
+    i: made on the device when every image has the same count, as a
+    same-shape group has (no upload, so a graph can hold it), else
+    uploaded."""
+    if len(set(counts)) == 1:
+        return torch.arange(len(counts) * counts[0], device=device) // counts[0]
+    (img,) = upload([np.repeat(np.arange(len(counts)), counts)], device)
+    return img
+
+
 def k0_prior(
     tiles: torch.Tensor, counts: Sequence[int], th: int, tw: int,
     cfg: CodingConfig,
@@ -92,11 +131,14 @@ def k0_prior(
 
     Exact int64 sums over each image's out-of-range pixels; ties go to the
     largest k, and a bucket no pixel reached gets the largest k (the native
-    codec's uint64 sums and the reference's host pass pick the same)."""
+    codec's uint64 sums and the reference's host pass pick the same). One
+    scatter-add of every pixel's K Rice lengths into its tile's bucket row
+    (the reference's one-hot reduction in compute_k0_prior_jax), then one
+    of the tiles' rows into their images."""
     nt, c, t = tiles.shape
     dev = tiles.device
     nb, K = tile_codec.num_buckets(cfg), cfg.num_k
-    a_idx, b_idx = neighbours(th, tw, dev)
+    a_idx, b_idx = tile_neighbours(th, tw, dev)
     x = tiles.to(torch.int64)
     v1, v2 = x[..., a_idx], x[..., b_idx]
     low = torch.minimum(v1, v2)
@@ -107,19 +149,16 @@ def k0_prior(
     res = torch.where(below, low - x, x - low - ctx) - 1
     qctx = bit_length(ctx, nb - 1)  # min(bit_length(ctx), nb - 1)
     ks = torch.arange(K, dtype=torch.int64, device=dev)
-    wts = torch.where(
-        (below | above).unsqueeze(-1), (res.unsqueeze(-1) >> ks) + 1 + ks, 0
-    )  # (nt, C, t, K)
-    per_tile = torch.stack(
-        [(wts * (qctx == b).unsqueeze(-1)).sum(dim=2) for b in range(nb)],
-        dim=2,
-    )  # (nt, C, nb, K)
-    (counts_t,) = upload([np.asarray(counts, np.int64)], dev)
-    img = torch.repeat_interleave(
-        torch.arange(len(counts), device=dev), counts_t, output_size=nt
-    )
+    # (nt, C, t, K), built in place: the largest temporary of an encode
+    # graph's pool
+    wts = (res.unsqueeze(-1) >> ks).add_(ks + 1)
+    wts.masked_fill_(~(below | above).unsqueeze(-1), 0)
+    row = torch.arange(nt * c, device=dev).reshape(nt, c, 1) * nb + qctx
+    per_tile = torch.zeros((nt * c * nb, K), dtype=torch.int64, device=dev)
+    per_tile.index_add_(0, row.reshape(-1), wts.reshape(-1, K))
+    img = image_of_tile(counts, dev)
     totals = torch.zeros((len(counts), c, nb, K), dtype=torch.int64, device=dev)
-    totals.index_add_(0, img, per_tile)
+    totals.index_add_(0, img, per_tile.reshape(nt, c, nb, K))
     minv = totals.min(dim=-1, keepdim=True).values
     k0 = torch.where(totals == minv, ks, -1).max(dim=-1).values  # (n, C, nb)
     prior = flct.PRIOR_WEIGHT * (ks - k0.unsqueeze(-1)).abs()
@@ -169,6 +208,17 @@ def aligned_payload(words: torch.Tensor, bits: torch.Tensor, cap: int):
     return words_to_bytes(out), ends[-1:]
 
 
+def tile_priors(tiles, counts, th, tw, cfg, k_prior: bool):
+    """(k0 (n_imgs, C, nb), prior): ``k0_prior``'s, or zeros (a (C, nb, K)
+    prior shared by every tile) without ``k_prior``."""
+    if k_prior:
+        return k0_prior(tiles, counts, th, tw, cfg)
+    c, dev = tiles.shape[1], tiles.device
+    nb, K = tile_codec.num_buckets(cfg), cfg.num_k
+    return (torch.zeros((len(counts), c, nb), dtype=torch.int32, device=dev),
+            torch.zeros((c, nb, K), dtype=torch.int32, device=dev))
+
+
 def encode_prepare(
     images: Sequence[np.ndarray], headers: Sequence[Header], th: int, tw: int,
     k_prior: bool, device: torch.device,
@@ -180,8 +230,6 @@ def encode_prepare(
     ``k_prior``, k0 (n_imgs, C, nb), each image's tile count, cfg). Never
     waits on the device."""
     cfg = tiled_config_for_depth(headers[0].pixel_depth)
-    c = headers[0].num_channels
-    nb, K = tile_codec.num_buckets(cfg), cfg.num_k
     views = upload(images, device)
     if all(im.shape == images[0].shape for im in images):
         tiles = image_tiles(as_pixels(torch.stack(views)), th, tw)
@@ -189,11 +237,7 @@ def encode_prepare(
         tiles = torch.cat([image_tiles(as_pixels(v)[None], th, tw) for v in views])
     tc = TileConfig(th, tw)
     counts = [math.prod(tc.grid(hd.height, hd.width)) for hd in headers]
-    if k_prior:
-        k0, prior = k0_prior(tiles, counts, th, tw, cfg)
-    else:
-        k0 = torch.zeros((len(images), c, nb), dtype=torch.int32, device=device)
-        prior = torch.zeros((c, nb, K), dtype=torch.int32, device=device)
+    k0, prior = tile_priors(tiles, counts, th, tw, cfg, k_prior)
     return tiles, prior, k0, counts, cfg
 
 
@@ -213,7 +257,9 @@ class ShardPending:
     words: torch.Tensor
     bits: torch.Tensor
     cap: int
-    result: HostCopy  # bits, used word count, payload bytes, then the extras
+    # bits, used word count, payload bytes, then the extras: a HostCopy, or
+    # the lease of a graph replay
+    result: HostCopy
 
 
 @dataclass
@@ -253,23 +299,28 @@ def shard_finish(p: ShardPending) -> Tuple[np.ndarray, bytes, List[np.ndarray]]:
     tiles' byte streams, concatenated; the extras as numpy arrays). A
     stream longer than the width hint is encoded again at its exact width,
     and a payload larger than the capacity compacted again at its exact
-    size, both synchronously on the shard's device."""
-    bits_np, total_np, pay_np, *extra = p.result.wait()
-    nt, c, t = p.tiles.shape
-    max_bits = int(bits_np.max())
-    total = int(((bits_np + 31) // 32).sum())
-    with on_device(p.tiles.device):
-        if max_bits > 32 * p.W:
-            p.W = exact_width(max_bits)
-            p.words, p.bits = tile_codec.encode_tiles(
-                p.tiles, p.cfg, p.th, p.tw, p.W, p.prior)
-            (pay_np,) = HostCopy(aligned_payload(p.words, p.bits, total)[0]).wait()
-        elif int(total_np[0]) > p.cap:
-            (pay_np,) = HostCopy(aligned_payload(p.words, p.bits, total)[0]).wait()
-    tile_codec.observe_width(p.cfg, t, c, max_bits)
-    observe_payload(p.cfg, t, c, total, nt)
-    tile_bytes = (bits_np + 7) // 8
-    return tile_bytes, flct.strip_word_alignment(pay_np, tile_bytes), extra
+    size, both synchronously on the shard's device. Releases the result's
+    buffers."""
+    try:
+        bits_np, total_np, pay_np, *extra = p.result.wait()
+        nt, c, t = p.tiles.shape
+        max_bits = int(bits_np.max())
+        total = int(((bits_np + 31) // 32).sum())
+        with on_device(p.tiles.device):
+            if max_bits > 32 * p.W:
+                p.W = exact_width(max_bits)
+                p.words, p.bits = tile_codec.encode_tiles(
+                    p.tiles, p.cfg, p.th, p.tw, p.W, p.prior)
+                (pay_np,) = HostCopy(aligned_payload(p.words, p.bits, total)[0]).wait()
+            elif int(total_np[0]) > p.cap:
+                (pay_np,) = HostCopy(aligned_payload(p.words, p.bits, total)[0]).wait()
+        tile_codec.observe_width(p.cfg, t, c, max_bits)
+        observe_payload(p.cfg, t, c, total, nt)
+        tile_bytes = (bits_np + 7) // 8
+        return (tile_bytes, flct.strip_word_alignment(pay_np, tile_bytes),
+                [e.copy() for e in extra])
+    finally:
+        p.result.release()
 
 
 def encode_dispatch(
@@ -310,12 +361,81 @@ def encode_finish(p: EncodePending) -> List[bytes]:
                            k0_np if p.k_prior else None)
 
 
+def encode_key(
+    images: Sequence[np.ndarray], headers: Sequence[Header], th: int, tw: int,
+    k_prior: bool, device: torch.device,
+) -> Optional[tuple]:
+    """The graph key of a geometry group's encode, as the reference keys
+    its jitted chain: (direction, tile dims, channels, depth, images, image
+    dims, width hint, capacity hint, k_prior); None for a group that runs
+    eagerly (mixed shapes, or not on CUDA)."""
+    if device.type != "cuda" or any(im.shape != images[0].shape for im in images):
+        return None
+    h0 = headers[0]
+    cfg = tiled_config_for_depth(h0.pixel_depth)
+    c, t = h0.num_channels, th * tw
+    nt = len(images) * math.prod(TileConfig(th, tw).grid(h0.height, h0.width))
+    return ("encode", th, tw, c, h0.pixel_depth, len(images), h0.height, h0.width,
+            tile_codec.width_hint(cfg, t, c), payload_cap_hint(cfg, nt, t, c), k_prior)
+
+
+def encode_group_dispatch(
+    images: Sequence[np.ndarray], headers: Sequence[Header], th: int, tw: int,
+    k_prior: bool, device: torch.device,
+) -> EncodePending:
+    """A geometry group's encode chain, enqueued: a group with a key
+    (``encode_key``) goes through the graph cache, eager the first time
+    its key is seen, then one replay of the key's graph; any other group
+    through ``encode_dispatch``, the eager chain. A hint that moves makes
+    a new key. ``encode_finish`` finishes either. Never waits on the
+    device."""
+    key = encode_key(images, headers, th, tw, k_prior, device)
+    lease = None if key is None else graphs.cache(device).acquire(
+        key, lambda: _capture_encode(key, device))
+    if lease is None:
+        return encode_dispatch(images, headers, th, tw, k_prior, device)
+    _, _, _, _, depth, n, h, w, W, cap, _ = key
+    g = lease.graph
+    np.stack(images, out=g.host_in.numpy().view(images[0].dtype).reshape(
+        (n,) + images[0].shape))
+    with on_device(device):
+        g.replay()
+    o = g.outputs
+    per = math.prod(TileConfig(th, tw).grid(h, w))
+    return EncodePending(tiled_config_for_depth(depth), th, tw, o["tiles"], o["prior"],
+                         W, o["words"], o["bits"], cap, lease, headers=list(headers),
+                         counts=[per] * n, k_prior=k_prior)
+
+
+def _capture_encode(key, device: torch.device) -> graphs.Graph:
+    """The graph of a same-shape encode key: from the images' bytes to the
+    copy ``encode_dispatch`` makes (bit counts, used word count, payload,
+    k0), through the same ops."""
+    _, th, tw, c, depth, n, h, w, W, cap, k_prior = key
+    cfg = tiled_config_for_depth(depth)
+    narrow = torch.uint8 if depth == PixelDepth.EIGHT else torch.int16
+    shape = (n, h, w) + ((3,) if c == 3 else ())
+    per = math.prod(TileConfig(th, tw).grid(h, w))
+    tile_neighbours(th, tw, device)  # uploaded now: the capture cannot
+
+    def body(dev_in):
+        tiles = image_tiles(as_pixels(dev_in.view(narrow).reshape(shape)), th, tw)
+        k0, prior = tile_priors(tiles, [per] * n, th, tw, cfg, k_prior)
+        words, bits = tile_codec.encode_tiles(tiles, cfg, th, tw, W, prior)
+        pay, total = aligned_payload(words, bits, cap)
+        return [bits, total, pay, k0], {"tiles": tiles, "prior": prior,
+                                        "words": words, "bits": bits}
+
+    in_bytes = n * h * w * c * (1 if depth == PixelDepth.EIGHT else 2)
+    return graphs.capture(key, device, in_bytes, body)
+
+
 def encode_group(
     images: Sequence[np.ndarray], headers: Sequence[Header], th: int, tw: int,
     k_prior: bool, device: torch.device,
 ) -> List[bytes]:
     """FLCT containers of same-geometry images: dispatch, then finish."""
-    return encode_finish(encode_dispatch(images, headers, th, tw, k_prior, device))
+    return encode_finish(encode_group_dispatch(images, headers, th, tw, k_prior, device))
 
 
 def compress_tiled_bytes(
@@ -362,29 +482,38 @@ def plane_bounds(hd: flct.TiledHeader) -> Tuple[int, int]:
     return (0 if hd.num_channels == 1 else -bound), bound
 
 
+def assemble_images(bufs: torch.Tensor, hd: flct.TiledHeader, n: int):
+    """(n * n_tiles, C, t) planes of n images of ``hd``'s shape, image after
+    image -> ((n, H, W[, 3]) int32 pixels, (n,) valid flags), in one pass
+    over the batch (the reference's vmapped _assemble_image_body). Raw plane
+    values outside the depth's plane bounds flag their image too, even where
+    they sit in tile padding, so a corrupt container is rejected the same
+    way whichever image it lands in."""
+    th, tw, c = hd.tile_h, hd.tile_w, hd.num_channels
+    ty, tx = TileConfig(th, tw).grid(hd.height, hd.width)
+    lo, bound = plane_bounds(hd)
+    planes_ok = ((bufs >= lo) & (bufs <= bound)).reshape(n, -1).all(dim=1)
+    planes = (
+        bufs.reshape(n, ty, tx, c, th, tw)
+        .permute(0, 3, 1, 4, 2, 5)
+        .reshape(n, c, ty * th, tx * tw)[:, :, : hd.height, : hd.width]
+    )
+    if c == 1:
+        out = planes[:, 0]
+    else:
+        r, g, b = ycocg_to_rgb(planes[:, 0], planes[:, 1], planes[:, 2], xp=torch)
+        out = torch.stack([r, g, b], dim=-1)
+    valid = planes_ok & ((out >= 0) & (out <= bound)).reshape(n, -1).all(dim=1)
+    return out, valid
+
+
 def assemble_image(
     bufs: torch.Tensor, hd: flct.TiledHeader
 ):
     """(n_tiles, C, t) planes of one image -> ((H, W[, 3]) int32 pixels,
-    valid flag). Raw plane values outside the depth's plane bounds flag the
-    image too, even where they sit in tile padding, so a corrupt container
-    is rejected the same way whichever image it lands in."""
-    th, tw, c = hd.tile_h, hd.tile_w, hd.num_channels
-    ty, tx = TileConfig(th, tw).grid(hd.height, hd.width)
-    lo, bound = plane_bounds(hd)
-    planes_ok = ((bufs >= lo) & (bufs <= bound)).all()
-    planes = (
-        bufs.reshape(ty, tx, c, th, tw)
-        .permute(2, 0, 3, 1, 4)
-        .reshape(c, ty * th, tx * tw)[:, : hd.height, : hd.width]
-    )
-    if c == 1:
-        out = planes[0]
-    else:
-        r, g, b = ycocg_to_rgb(planes[0], planes[1], planes[2], xp=torch)
-        out = torch.stack([r, g, b], dim=-1)
-    valid = planes_ok & ((out >= 0) & (out <= bound)).all()
-    return out, valid
+    valid flag): ``assemble_images`` of a batch of one."""
+    out, valid = assemble_images(bufs, hd, 1)
+    return out[0], valid[0]
 
 
 def payload_of(data: bytes, hd: flct.TiledHeader) -> bytes:
@@ -426,22 +555,35 @@ def upload_rows(
     return word_rows(buf[offs[len(arrays)] :], views[0], wd), views[1:]
 
 
-def assemble_dispatch(
+def assembled(
     headers: Sequence[flct.TiledHeader], bufs: torch.Tensor
-) -> HostCopy:
-    """Decoded planes of same-geometry containers, in tile order -> one
-    copy to the host of the validity flags and the narrowed images (uint8,
-    or uint16 bit patterns as int16), assembled, range-checked and cropped
-    on the planes' device. Never waits on the device."""
-    depth = headers[0].pixel_depth
-    narrow = torch.uint8 if depth == PixelDepth.EIGHT else torch.int16
+) -> List[torch.Tensor]:
+    """Decoded planes of same-geometry containers, in tile order -> [the
+    validity flags, then each image narrowed (uint8, or uint16 bit patterns
+    as int16)], assembled, range-checked and cropped on the planes' device:
+    one pass over a same-shape batch (``assemble_images``), image by image
+    otherwise."""
+    h0 = headers[0]
+    maxv = (1 << h0.pixel_depth.bits) - 1
+    narrow = torch.uint8 if h0.pixel_depth == PixelDepth.EIGHT else torch.int16
+    if all((hd.height, hd.width) == (h0.height, h0.width) for hd in headers):
+        out, valid = assemble_images(bufs, h0, len(headers))
+        return [valid, *out.clamp(0, maxv).to(narrow).unbind(0)]
     imgs, flags, t0 = [], [], 0
     for hd in headers:
         out, valid = assemble_image(bufs[t0 : t0 + hd.n_tiles], hd)
-        imgs.append(out.clamp(0, (1 << depth.bits) - 1).to(narrow))
+        imgs.append(out.clamp(0, maxv).to(narrow))
         flags.append(valid)
         t0 += hd.n_tiles
-    return HostCopy(torch.stack(flags), *imgs)
+    return [torch.stack(flags), *imgs]
+
+
+def assemble_dispatch(
+    headers: Sequence[flct.TiledHeader], bufs: torch.Tensor
+) -> HostCopy:
+    """One copy to the host of ``assembled(headers, bufs)``. Never waits
+    on the device."""
+    return HostCopy(*assembled(headers, bufs))
 
 
 def decode_dispatch(
@@ -466,14 +608,96 @@ def decode_dispatch(
     return assemble_dispatch(headers, bufs)
 
 
-def decode_finish(p: HostCopy) -> Tuple[List[np.ndarray], np.ndarray]:
-    """Wait on a dispatched decode: (images, validity flag of each). An
-    image whose flag is False held a value outside its depth, and its
-    pixels are clamped garbage. The images are copied out of the pinned
-    buffer, which then goes back to the allocator's pool."""
-    flags, *imgs = p.wait()
-    imgs = [(im if im.dtype == np.uint8 else im.view(np.uint16)).copy() for im in imgs]
-    return imgs, flags.copy()
+def decode_key(
+    headers: Sequence[flct.TiledHeader], device: torch.device
+) -> Optional[tuple]:
+    """The graph key of a geometry group's decode, as the reference keys
+    its jitted chain: (direction, tile dims, channels, depth, images, image
+    dims, row width, bucketed payload bytes); None for a group that runs
+    eagerly (mixed shapes, or not on CUDA)."""
+    h0 = headers[0]
+    if device.type != "cuda" or any(
+            (hd.height, hd.width) != (h0.height, h0.width) for hd in headers):
+        return None
+    lens = np.concatenate([hd.tile_lengths for hd in headers])
+    return ("decode", h0.tile_h, h0.tile_w, h0.num_channels, h0.pixel_depth,
+            len(headers), h0.height, h0.width, row_width(lens),
+            payload_bucket(int(lens.sum())))
+
+
+def decode_group_dispatch(
+    headers: Sequence[flct.TiledHeader], payloads: Sequence[bytes],
+    device: torch.device,
+):
+    """A geometry group's decode chain, enqueued: a group with a key
+    (``decode_key``) goes through the graph cache, eager the first time
+    its key is seen, then one replay of the key's graph; any other group
+    through ``decode_dispatch``, the eager chain. ``decode_finish``
+    finishes either. Never waits on the device."""
+    key = decode_key(headers, device)
+    h0 = headers[0]
+    lease = None if key is None else graphs.cache(device).acquire(
+        key, lambda: _capture_decode(key, h0, device))
+    if lease is None:
+        return decode_dispatch(headers, payloads, device)
+    cfg = tiled_config_for_depth(h0.pixel_depth)
+    lens = np.concatenate([hd.tile_lengths for hd in headers]).astype(np.int64)
+    priors = np.stack([flct.prior_from_k0(hd.k0, cfg, h0.num_channels) for hd in headers])
+    host = lease.graph.host_in.numpy()
+    o1 = lens.nbytes
+    o2 = o1 + priors.nbytes
+    host[:o1].view(np.int64)[:] = lens
+    host[o1:o2].view(np.int32)[:] = priors.reshape(-1)
+    for p in payloads:
+        host[o2 : o2 + len(p)] = np.frombuffer(p, np.uint8)
+        o2 += len(p)
+    with on_device(device):
+        lease.graph.replay()
+    return lease
+
+
+def payload_bucket(nbytes: int) -> int:
+    """A payload's byte count rounded up to a coarse bucket, the size a
+    decode graph uploads (the reference's _bucket_bytes)."""
+    n = max(1 << 12, int(nbytes))
+    gran = 1 << max(10, n.bit_length() - 3)
+    return -(-n // gran) * gran
+
+
+def _capture_decode(key, hd: flct.TiledHeader, device: torch.device) -> graphs.Graph:
+    """The graph of a same-shape decode key: from the tile lengths, priors
+    and bucketed payload to the copy ``decode_dispatch`` makes (flags, then
+    the images), through the same ops."""
+    _, th, tw, c, depth, n, _, _, wd, size = key
+    cfg = tiled_config_for_depth(depth)
+    nb, K = tile_codec.num_buckets(cfg), cfg.num_k
+    nt = n * hd.n_tiles
+    o1 = 8 * nt
+    o2 = o1 + 4 * n * c * nb * K
+
+    def body(dev_in):
+        lens = dev_in[:o1].view(torch.int64)
+        priors = dev_in[o1:o2].view(torch.int32).reshape(n, c, nb, K)
+        rows = word_rows(dev_in[o2:], lens, wd)
+        prior = priors[0] if n == 1 else (
+            priors.unsqueeze(1).expand(n, hd.n_tiles, c, nb, K).reshape(nt, c, nb, K))
+        bufs = tile_codec.decode_tiles(rows, cfg, th, tw, c, prior)
+        return assembled([hd] * n, bufs), {}
+
+    return graphs.capture(key, device, o2 + size, body)
+
+
+def decode_finish(p) -> Tuple[List[np.ndarray], np.ndarray]:
+    """Wait on a dispatched decode (a HostCopy, or a graph replay's lease):
+    (images, validity flag of each). An image whose flag is False held a
+    value outside its depth, and its pixels are clamped garbage. The images
+    are copied out of the pinned buffer, which is then released."""
+    try:
+        flags, *imgs = p.wait()
+        imgs = [(im if im.dtype == np.uint8 else im.view(np.uint16)).copy() for im in imgs]
+        return imgs, flags.copy()
+    finally:
+        p.release()
 
 
 def decode_group(
@@ -482,7 +706,7 @@ def decode_group(
 ) -> Tuple[List[np.ndarray], np.ndarray]:
     """Images of same-geometry containers and their validity flags:
     dispatch, then finish."""
-    return decode_finish(decode_dispatch(headers, payloads, device))
+    return decode_finish(decode_group_dispatch(headers, payloads, device))
 
 
 def decompress_tiled_bytes(data: bytes, device="cuda") -> np.ndarray:

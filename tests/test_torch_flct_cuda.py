@@ -384,3 +384,158 @@ def test_cuda_kernels_on_edge_rows(cuda, h, cls):
     dk = tcd.decode_tiles(wk, p.cfg, 2, 2, c, p.prior)
     assert torch.equal(dk, tcd.decode_tiles_ref(wk, p.cfg, 2, 2, c, p.prior))
     assert torch.equal(dk, p.tiles)
+
+
+# Same-shape groups on the card replay a CUDA graph of their chain from the
+# second sighting of their key (parallel/graphs.py). Three images of one
+# odd shape per class, at an odd tile.
+GRAPH_CLASSES = {
+    "gray8": ([_image(30 + i, (45, 37), np.uint8, True) for i in range(3)], (8, 6)),
+    "rgb8": ([_image(33 + i, (29, 31, 3), np.uint8, True) for i in range(3)], (7, 5)),
+    "gray16": ([_image(36 + i, (33, 27), np.uint16, True) for i in range(3)], (6, 8)),
+}
+
+
+@pytest.fixture(scope="module")
+def native_codec():
+    import os
+    import subprocess
+    import sys
+
+    from felics_tpu_torch import native
+
+    if not native.LIB_PATH.exists():
+        repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+        subprocess.run([sys.executable, os.path.join(repo, "native", "build.py")],
+                       check=True)
+    return native
+
+
+def _until_replayed(fn, direction, calls=6):
+    """fn()'s results over calls until one of them replayed a graph of
+    ``direction`` (a key runs eagerly at its first sighting, and a hint that
+    moves after the first call makes a new key); fails past ``calls``."""
+    from felics_tpu_torch.parallel import graphs
+
+    outs = []
+    for _ in range(calls):
+        before = graphs.REPLAYS[direction]
+        outs.append(fn())
+        if graphs.REPLAYS[direction] > before:
+            return outs
+    raise AssertionError(f"no {direction} graph replayed in {calls} calls")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cls", list(GRAPH_CLASSES))
+def test_cuda_graph_replay_equals_eager_chain_and_native(cuda, native_codec, cls):
+    """The batched pair and the per-image pair replay graphs from a key's
+    second sighting: every container equals the eager chain's and the
+    native codec's, every decode is exact, and K1 and K2 count their runs
+    inside the replays."""
+    from felics_tpu_torch.parallel import graphs
+
+    images, (th, tw) = GRAPH_CLASSES[cls]
+    tc = TileConfig(th, tw)
+    headers = [header_for_array(im) for im in images]
+    eager = tiling.encode_finish(tiling.encode_dispatch(images, headers, th, tw, True, cuda))
+    assert eager == [native_codec.compress_tiled(im, hd, tw, th)
+                     for im, hd in zip(images, headers)]
+    k1 = tcd.ENCODE_LAUNCHES
+    for blobs in _until_replayed(lambda: batch.compress_tiled_batch(images, tc, device=cuda),
+                                 "encode"):
+        assert blobs == eager
+    assert tcd.ENCODE_LAUNCHES > k1
+    k2 = tcd.DECODE_LAUNCHES
+    for outs in _until_replayed(lambda: batch.decompress_tiled_batch(eager, device=cuda),
+                                "decode"):
+        for im, out in zip(images, outs):
+            assert out.dtype == im.dtype and np.array_equal(out, im)
+    assert tcd.DECODE_LAUNCHES > k2
+    for blob in _until_replayed(lambda: tiling.compress_tiled_bytes(images[0], tc, device=cuda),
+                                "encode"):
+        assert blob == eager[0]
+    for out in _until_replayed(lambda: tiling.decompress_tiled_bytes(eager[0], device=cuda),
+                               "decode"):
+        assert np.array_equal(out, images[0])
+    assert all(g.key[0] in ("encode", "decode") for g in graphs.cache(cuda).graphs)
+
+
+@pytest.mark.cuda
+def test_cuda_graph_slots_with_one_key_keep_their_own_data(cuda, native_codec):
+    """A depth-2 stream of four batches of one shape, each of other images:
+    two batches in flight under one key replay two graphs, and every batch
+    gets its own containers and images back."""
+    from felics_tpu_torch.parallel import graphs
+
+    tc = TileConfig(8, 8)
+    batches = [[_image(40 + 2 * b + i, (40, 24), np.uint8, bool(b % 2)) for i in range(2)]
+               for b in range(4)]
+    want = [[native_codec.compress_tiled(im, header_for_array(im), 8, 8) for im in b]
+            for b in batches]
+    for _ in range(3):
+        assert batch.compress_tiled_stream(iter(batches), tc, depth=2, device=cuda) == want
+        outs = batch.decompress_tiled_stream(iter(want), depth=2, device=cuda)
+        for b, o in zip(batches, outs):
+            assert all(np.array_equal(x, y) for x, y in zip(b, o))
+    for direction in ("encode", "decode"):
+        keys = [g.key for g in graphs.cache(cuda).graphs
+                if g.key[0] == direction and g.key[5:8] == (2, 40, 24)]
+        assert max(keys.count(k) for k in keys) >= 2, direction
+
+
+@pytest.mark.cuda
+def test_cuda_graph_corrupt_payload_flags_like_eager(cuda):
+    """A same-shape batch with one member's payload zeroed (pixels soon
+    below 0): the graph replay gives the eager chain's validity flags and
+    images, and the isolating batched call keeps the error in its place."""
+    from felics_tpu_torch import errors
+
+    images, (th, tw) = GRAPH_CLASSES["gray8"]
+    blobs = batch.compress_tiled_batch(images, TileConfig(th, tw), device=cuda)
+    hd = flct.read_tiled_header(blobs[1])
+    bad = bytearray(blobs[1])
+    bad[hd.payload_off :] = bytes(len(bad) - hd.payload_off)
+    datas = [blobs[0], bytes(bad), blobs[2]]
+    headers = [flct.read_tiled_header(d) for d in datas]
+    payloads = [tiling.payload_of(d, h) for d, h in zip(datas, headers)]
+    want_imgs, want_ok = tiling.decode_finish(tiling.decode_dispatch(headers, payloads, cuda))
+    assert want_ok.tolist() == [True, False, True]
+    for imgs, ok in _until_replayed(lambda: tiling.decode_finish(
+            tiling.decode_group_dispatch(headers, payloads, cuda)), "decode"):
+        assert ok.tolist() == want_ok.tolist()
+        assert all(np.array_equal(a, b) for a, b in zip(imgs, want_imgs))
+    for outs in _until_replayed(lambda: batch.decompress_tiled_batch(
+            datas, device=cuda, on_error="isolate"), "decode"):
+        assert isinstance(outs[1], errors.InvalidValue)
+        assert np.array_equal(outs[0], images[0]) and np.array_equal(outs[2], images[2])
+
+
+@pytest.mark.cuda
+def test_cuda_graph_dispatch_does_not_wait_on_replay(cuda):
+    """Once a key's graph exists, its dispatch half (the static buffers'
+    fill, the upload, the replay, the copy back and the event) runs under
+    torch.cuda.set_sync_debug_mode("error"), and its finish half gives the
+    eager bytes and images."""
+    from felics_tpu_torch.parallel import graphs
+
+    images, (th, tw) = GRAPH_CLASSES["rgb8"]
+    tc = TileConfig(th, tw)
+    blobs = _until_replayed(lambda: batch.compress_tiled_batch(images, tc, device=cuda),
+                            "encode")[-1]
+    _until_replayed(lambda: batch.decompress_tiled_batch(blobs, device=cuda), "decode")
+    torch.cuda.synchronize()
+    replays = dict(graphs.REPLAYS)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with pytest.raises(RuntimeError):  # the mode is live
+            int(torch.ones(1, device=cuda).sum())
+        enc = batch._encode_dispatch(images, tc, cuda)
+        dec = batch._decode_dispatch(blobs, cuda, False)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert graphs.REPLAYS == {"encode": replays["encode"] + 1,
+                              "decode": replays["decode"] + 1}
+    assert batch._encode_finish(enc) == blobs
+    for im, out in zip(images, batch._decode_finish(dec, cuda, False)):
+        assert out.dtype == im.dtype and np.array_equal(out, im)
