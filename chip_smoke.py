@@ -168,6 +168,14 @@ EDGE_TILES = ((2, 2), (4, 3), (64, 64))
 # leave it replaying its graph. The classes and tiles phase 11 measures.
 GRAPH_WARM = 3
 GRAPH_RUNS = (("gray8", 32), ("gray8", 64), ("rgb8", 32), ("gray16", 32))
+# Phase 11's check of the cache's bound: gray8 batches of 1..GRAPH_CHURN
+# images (pools of ~43 MB an image) under a bound cut to 1 GiB.
+GRAPH_CHURN = 16
+GRAPH_CHURN_BYTES = 1 << 30
+# Phase 11's profiled windows: calls in one window, and windows with CPU
+# and CUDA activities before a last one with CUDA alone (profiled_calls).
+PROFILE_CALLS = 3
+PROFILE_TRIES = 3
 # H100 SXM peaks (NVIDIA's data sheet, at a 700 W limit): HBM3 bytes a
 # second, and float32 operations a second outside the tensor cores, the
 # nearest entry to the kernels' 32-bit integer operations.
@@ -180,7 +188,10 @@ OPS_PER_K_ENTRY = 4
 
 
 def fail(msg: str) -> None:
+    """Report a failed check on both outputs (a caller that keeps only the
+    end of one still sees why) and exit 1."""
     print(f"FAIL: {msg}", flush=True)
+    print(f"FAIL: {msg}", file=sys.stderr, flush=True)
     sys.exit(1)
 
 
@@ -1259,11 +1270,10 @@ def graph_phase(np, torch, dev, card, classes) -> dict:
     profiler's kernels under a graph launch); best ms of 3 calls (CUDA
     events, after GRAPH_WARM warm calls) of each mode in turns eager,
     graph, graph, eager; host launches a call and the device's idle share
-    of one profiled one-shot call a direction; the graphs' pool bytes.
-    Returns the K1/K2 launches and the replays and captures of the graph
-    runs alone: each count set to 0 just before them and read just after."""
-    from torch.profiler import ProfilerActivity, profile
-
+    over a profiled window of one-shot calls a direction (profiled_calls);
+    the graphs' pool bytes. Returns the K1/K2 launches and the replays and
+    captures of the graph runs alone: each count set to 0 just before them
+    and read just after."""
     from felics_tpu_torch import compress_tiled_batch, decompress_tiled_batch, native
     from felics_tpu_torch.config import TileConfig
     from felics_tpu_torch.format import header_for_array
@@ -1328,37 +1338,35 @@ def graph_phase(np, torch, dev, card, classes) -> dict:
             row[f"{mode}_d2_over_b2b"] = row[f"{mode}_stream_mpx_s"] / row[f"{mode}_batched_mpx_s"]
             row[f"{mode}_b2b_over_one_shot"] = (row[f"{mode}_batched_mpx_s"]
                                                 / row[f"{mode}_one_shot_mpx_s"])
-            # One profiled one-shot call a direction (after warm calls):
-            # host launches, the kernels the device ran, the idle share.
+            # Profiled one-shot calls a direction (after warm calls), per
+            # call: host launches, the kernels the device ran, the idle share.
             for d, fn in (("encode", calls["one_shot_encode"]),
                           ("decode", calls["one_shot_decode"])):
-                with eager_chains() if mode == "eager" else contextlib.nullcontext():
-                    fn()
-                    fn()
-                    torch.cuda.synchronize()
-                    with profile(activities=[ProfilerActivity.CPU,
-                                             ProfilerActivity.CUDA]) as prof:
-                        t0 = time.perf_counter()
-                        fn()
-                        torch.cuda.synchronize()
-                        wall_us = (time.perf_counter() - t0) * 1e6
                 kernel = "flct_encode_kernel" if d == "encode" else "flct_decode_kernel"
-                row[f"{mode}_{d}_host_calls"] = host_launches(prof)
-                row[f"{mode}_{d}_device_kernels"] = sum(
+                with eager_chains() if mode == "eager" else contextlib.nullcontext():
+                    prof, wall_us, tries = profiled_calls(torch, fn, kernel)
+                per = 1 / PROFILE_CALLS
+                row[f"{mode}_{d}_profile_tries"] = tries
+                row[f"{mode}_{d}_host_calls"] = {
+                    k: v * per for k, v in host_launches(prof).items()}
+                row[f"{mode}_{d}_device_kernels"] = per * sum(
                     1 for e in prof.events() if e.device_type.name == "CUDA"
                     and "Memcpy" not in e.name and "Memset" not in e.name)
-                row[f"{mode}_{d}_{kernel}"] = sum(
+                row[f"{mode}_{d}_{kernel}"] = per * sum(
                     1 for e in prof.events()
                     if e.device_type.name == "CUDA" and kernel in e.name)
                 row[f"{mode}_{d}_idle_share"] = 1 - device_busy_us(prof) / wall_us
-                row[f"{mode}_{d}_profiled_wall_ms"] = wall_us / 1e3
+                row[f"{mode}_{d}_profiled_wall_ms"] = wall_us * per / 1e3
                 row[f"{mode}_{d}_top_host_self_ms"] = [
-                    [e.key, e.self_cpu_time_total / 1e3, e.count] for e in sorted(
+                    [e.key, e.self_cpu_time_total * per / 1e3, e.count * per] for e in sorted(
                         prof.key_averages(), key=lambda e: e.self_cpu_time_total,
                         reverse=True)[:6]]
             if not row[f"{mode}_encode_flct_encode_kernel"] or not row[
                     f"{mode}_decode_flct_decode_kernel"]:
-                fail(f"graphs {name} t{tile} {mode}: the profiler saw no K1 or K2")
+                seen = {k: v for k, v in row.items() if k.startswith(mode) and (
+                    "device_kernels" in k or "_kernel" in k or "host_calls" in k)}
+                fail(f"graphs {name} t{tile} {mode}: the profiler saw no K1 or K2 in "
+                     f"{PROFILE_TRIES + 1} windows of {PROFILE_CALLS} calls: {seen}")
         say("11 graphs", nvidia_smi=card, cls=name, tile=tile, images=len(images),
             chunk=n, launches=launched, bytes_equal_native=True, bytes_equal_eager=True,
             exact_round_trip=True, **row)
@@ -1369,7 +1377,76 @@ def graph_phase(np, torch, dev, card, classes) -> dict:
         input_bytes=sum(p["input_bytes"] for p in pools),
         max_bytes=graphs.cache(dev).max_bytes, by_graph=pools,
         seconds=time.perf_counter() - t11)
+    graph_churn(np, torch, dev, card)
     return counts
+
+
+def graph_churn(np, torch, dev, card) -> None:
+    """Phase 11, the cache's bound on the card: gray8 512^2 batches of 1 to
+    GRAPH_CHURN images at tile 32, each key captured (its second call) and
+    replayed (its third), under a bound cut to GRAPH_CHURN_BYTES. After
+    every call the bytes of the cached graphs plus those of the evicted
+    ones not handed back yet stay within the bound, and evicted pools are
+    handed back; every container equals the eager chain's."""
+    from felics_tpu_torch import compress_tiled_batch
+    from felics_tpu_torch.config import TileConfig
+    from felics_tpu_torch.parallel import graphs
+
+    t0 = time.perf_counter()
+    tc = TileConfig(TILE, TILE)
+    cache = graphs.cache(dev)
+    saved, cache.max_bytes = cache.max_bytes, GRAPH_CHURN_BYTES
+    cache.trim()
+    releases, base = cache.releases, torch.cuda.memory_reserved(dev)
+    peak, held = 0, 0
+    try:
+        for n in range(1, GRAPH_CHURN + 1):
+            images = synth((512, 512), np.uint8, n, 6, np)
+            with eager_chains():
+                want = compress_tiled_batch(images, tc, device=dev)
+            for _ in range(3):
+                if compress_tiled_batch(images, tc, device=dev) != want:
+                    fail(f"graph churn, {n} images: containers differ from the eager chain's")
+                held = max(held, cache.dropped + sum(g.nbytes for g in cache.graphs))
+                if cache.dropped + sum(g.nbytes for g in cache.graphs) > cache.max_bytes:
+                    fail(f"graph churn, {n} images: {cache.dropped} evicted and "
+                         f"{sum(g.nbytes for g in cache.graphs)} cached bytes pass the "
+                         f"bound of {cache.max_bytes}")
+                peak = max(peak, torch.cuda.memory_reserved(dev) - base)
+        if cache.releases == releases:
+            fail("graph churn: no evicted pool was handed back")
+    finally:
+        cache.max_bytes = saved
+    say("11 churn", nvidia_smi=card, batches=GRAPH_CHURN, bound_bytes=GRAPH_CHURN_BYTES,
+        most_held_bytes=held, releases=cache.releases - releases,
+        reserved_growth_peak_bytes=peak, graphs=len(cache.graphs),
+        bytes_equal_eager=True, seconds=time.perf_counter() - t0)
+
+
+def profiled_calls(torch, fn, kernel: str):
+    """(profiler, wall us, windows taken) of PROFILE_CALLS calls of fn()
+    under torch.profiler, after two warm calls. The profiler's device
+    records of a window can come back short (on some H100 hosts a few
+    kernels of each window are missing): a window whose records hold no
+    kernel named ``kernel`` is profiled again, PROFILE_TRIES windows with
+    CPU and CUDA activities, then one with CUDA alone (the sessions of
+    ``profiled``); the last one is returned either way."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    fn()
+    torch.cuda.synchronize()
+    both = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    for tries, acts in enumerate([both] * PROFILE_TRIES + [[ProfilerActivity.CUDA]], 1):
+        with profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            for _ in range(PROFILE_CALLS):
+                fn()
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        if any(e.device_type.name == "CUDA" and kernel in e.name for e in prof.events()):
+            break
+    return prof, wall_us, tries
 
 
 def graph_stream_checked(np, dev, tc, chunks, blobs, images):

@@ -29,7 +29,13 @@ the result (``Lease.release``): a batch in flight in another stream slot
 under the same key gets a graph of its own. Per device the cache keeps at
 most ``MAX_GRAPHS`` graphs and ``MAX_MEMORY_SHARE`` of the device's memory
 in their pools and input buffers; past either it evicts the least recently
-used idle graph.
+used idle graph. An evicted graph's pool stays with PyTorch's caching
+allocator until its cached blocks are released, and a capture cannot
+release them itself (while one is under way the allocator releases no
+cached block, so an allocation that does not fit fails): the cache counts
+the bytes of the graphs it evicted against its bound until it hands them
+back (``torch.cuda.empty_cache``), and does so before a capture when the
+device runs short.
 """
 
 from __future__ import annotations
@@ -131,10 +137,18 @@ class Lease:
 class GraphCache:
     """The graphs of one device, least recently used first."""
 
-    def __init__(self, max_graphs: int, max_bytes: int):
+    def __init__(self, max_graphs: int, max_bytes: int,
+                 release: Callable[[], None] = lambda: None,
+                 free_bytes: Optional[Callable[[], int]] = None):
         self.max_graphs, self.max_bytes = max_graphs, max_bytes
         self._seen: OrderedDict = OrderedDict()
         self._entries: List[_Entry] = []
+        # hands evicted graphs' pools back to the device; the device's free
+        # bytes (None: never short)
+        self._release, self._free_bytes = release, free_bytes
+        self.dropped = 0  # bytes of evicted graphs not handed back yet
+        self.largest = 0  # bytes of the largest graph captured
+        self.releases = 0
 
     @property
     def graphs(self) -> List:
@@ -153,23 +167,49 @@ class GraphCache:
         entry = next((e for e in reversed(self._entries)
                       if e.graph.key == key and not e.busy()), None)
         if entry is None:
+            self._make_room()
             entry = _Entry(capture())
+            self.largest = max(self.largest, entry.graph.nbytes)
         else:
             self._entries.remove(entry)
             entry.reclaim()
         self._entries.append(entry)
         lease = Lease(entry)
-        self._evict()
+        self.trim()
         return lease
 
+    def trim(self) -> None:
+        """Evict least recently used idle graphs past the bounds, then hand
+        the evicted graphs' pools back if they and the cached graphs pass
+        the byte bound."""
+        self._evict()
+        if self.dropped and self.dropped + self._bytes() > self.max_bytes:
+            self._hand_back()
+
+    def _bytes(self) -> int:
+        return sum(e.graph.nbytes for e in self._entries)
+
     def _evict(self) -> None:
-        while (len(self._entries) > self.max_graphs
-               or sum(e.graph.nbytes for e in self._entries) > self.max_bytes):
+        while len(self._entries) > self.max_graphs or self._bytes() > self.max_bytes:
             victim = next((e for e in self._entries if not e.busy()), None)
             if victim is None:
                 return
             victim.reclaim()
             self._entries.remove(victim)
+            self.dropped += victim.graph.nbytes
+
+    def _make_room(self) -> None:
+        """Before a capture: hand the evicted graphs' pools back when the
+        device's free bytes may not hold twice the largest graph (at least
+        an eighth of the bound)."""
+        if self._free_bytes is not None and (
+                self._free_bytes() < max(self.max_bytes // 8, 2 * self.largest)):
+            self._hand_back()
+
+    def _hand_back(self) -> None:
+        self._release()
+        self.dropped = 0
+        self.releases += 1
 
 
 _caches: Dict[int, GraphCache] = {}
@@ -185,7 +225,9 @@ def cache(device: torch.device) -> GraphCache:
     index = _index(device)
     if index not in _caches:
         total = torch.cuda.get_device_properties(index).total_memory
-        _caches[index] = GraphCache(MAX_GRAPHS, int(total * MAX_MEMORY_SHARE))
+        _caches[index] = GraphCache(
+            MAX_GRAPHS, int(total * MAX_MEMORY_SHARE), release=torch.cuda.empty_cache,
+            free_bytes=lambda: torch.cuda.mem_get_info(index)[0])
     return _caches[index]
 
 

@@ -539,3 +539,26 @@ def test_cuda_graph_dispatch_does_not_wait_on_replay(cuda):
     assert batch._encode_finish(enc) == blobs
     for im, out in zip(images, batch._decode_finish(dec, cuda, False)):
         assert out.dtype == im.dtype and np.array_equal(out, im)
+
+
+@pytest.mark.cuda
+def test_cuda_graph_cache_hands_evicted_pools_back(cuda, native_codec):
+    """Under a bound of one byte, batches of 1..6 images of one shape (one
+    key each) capture and replay in turn, each capture evicting the graphs
+    before it: every eviction's pools are handed back at once, and every
+    container equals the native codec's."""
+    from felics_tpu_torch.parallel import graphs
+
+    cache = graphs.cache(cuda)
+    images = [_image(60 + i, (96, 80), np.uint8, bool(i % 2)) for i in range(6)]
+    want = [native_codec.compress_tiled(im, header_for_array(im), 8, 8) for im in images]
+    saved, releases, cache.max_bytes = cache.max_bytes, cache.releases, 1
+    try:
+        for n in range(1, len(images) + 1):
+            for blobs in _until_replayed(lambda: batch.compress_tiled_batch(
+                    images[:n], TileConfig(8, 8), device=cuda), "encode"):
+                assert blobs == want[:n]
+                assert cache.dropped == 0 and len(cache.graphs) <= 1
+        assert cache.releases - releases >= len(images) - 1
+    finally:
+        cache.max_bytes = saved

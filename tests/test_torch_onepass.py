@@ -396,6 +396,56 @@ def test_cache_bounds_the_bytes_of_its_graphs():
     assert sum(g.nbytes for g in cache.graphs) <= 100
 
 
+def test_cache_hands_evicted_pools_back_within_its_bound():
+    """An evicted graph's bytes count against the bound until they are
+    handed back; they are handed back once they would pass it."""
+    handed = []
+    cache, cap = graphs.GraphCache(10, 100, release=lambda: handed.append(1)), Capture()
+    for k in "ab":
+        cache.acquire(k, cap(k, 40))
+        cache.acquire(k, cap(k, 40)).release()
+    assert cache.dropped == 0 and handed == []
+    cache.acquire("c", cap("c", 40))
+    cache.acquire("c", cap("c", 40)).release()  # "a" goes: 40 + 80 > 100
+    assert [g.key for g in cache.graphs] == ["b", "c"]
+    assert handed == [1] and cache.dropped == 0 and cache.releases == 1
+    small = graphs.GraphCache(1, 1000, release=lambda: handed.append(2))
+    for k in "de":
+        small.acquire(k, cap(k, 40))
+        small.acquire(k, cap(k, 40)).release()  # "d" goes: 40 + 40 <= 1000
+    assert small.dropped == 40 and handed == [1]
+
+
+def test_cache_trim_fits_a_cut_bound():
+    handed = []
+    cache, cap = graphs.GraphCache(10, 1000, release=lambda: handed.append(1)), Capture()
+    for k in "abc":
+        cache.acquire(k, cap(k, 40))
+        cache.acquire(k, cap(k, 40)).release()
+    busy = cache.acquire("c", cap("c", 40))
+    cache.max_bytes = 50
+    cache.trim()  # "a" and "b" go; "c" is busy and stays
+    assert [g.key for g in cache.graphs] == ["c"]
+    assert handed == [1] and cache.dropped == 0
+    busy.release()
+
+
+def test_cache_makes_room_before_a_capture_when_the_device_is_short():
+    handed, free = [], [1000]
+    cache = graphs.GraphCache(4, 800, release=lambda: handed.append(1),
+                              free_bytes=lambda: free[0])
+    cap = Capture()
+    cache.acquire("a", cap("a", 300))
+    cache.acquire("a", cap("a", 300)).release()  # 1000 free >= 800 // 8
+    assert handed == [] and cache.largest == 300
+    free[0] = 599  # under twice the largest graph
+    cache.acquire("b", cap("b"))
+    cache.acquire("b", cap("b")).release()
+    assert handed == [1]
+    cache.acquire("b", cap("b")).release()  # a replay captures nothing
+    assert handed == [1]
+
+
 def test_cache_settles_a_graph_whose_lease_was_dropped():
     """A lease dropped without release (a batch abandoned by an exception)
     frees its graph, which is waited on before it is used again."""
