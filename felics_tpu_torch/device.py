@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from felics_tpu_torch.core.context import neighbour_indices
+from felics_tpu_torch.spans import span
 
 _NP_DTYPES = {
     torch.bool: np.bool_, torch.uint8: np.uint8, torch.int16: np.int16,
@@ -71,8 +72,9 @@ def stage(arrays: Sequence[np.ndarray], device: torch.device) -> Tuple[torch.Ten
         total += a.nbytes
     host = torch.empty(total, dtype=torch.uint8, pin_memory=device.type == "cuda")
     flat = host.numpy()
-    for a, off in zip(arrays, offsets):
-        flat[off : off + a.nbytes] = np.ascontiguousarray(a).reshape(-1).view(np.uint8)
+    with span("felics.stage.fill"):
+        for a, off in zip(arrays, offsets):
+            flat[off : off + a.nbytes] = np.ascontiguousarray(a).reshape(-1).view(np.uint8)
     return host.to(device, non_blocking=True), offsets
 
 
@@ -146,7 +148,8 @@ class HostCopy:
 
     def wait(self) -> List[np.ndarray]:
         if self.event is not None:
-            self.event.synchronize()
+            with span("felics.wait"):
+                self.event.synchronize()
         return unpack(self.buf.numpy(), self.specs)
 
     def release(self) -> None:

@@ -30,6 +30,7 @@ from felics_tpu_torch.config import TileConfig
 from felics_tpu_torch.device import resolve_device
 from felics_tpu_torch.format import header_for_array
 from felics_tpu_torch.parallel import flct, tiling
+from felics_tpu_torch.spans import span
 
 
 def _check_on_error(on_error: str) -> bool:
@@ -47,16 +48,17 @@ def geometry_groups(images: Sequence[np.ndarray], tile: TileConfig):
     """(headers, out holding the containers of the zero-area members and
     None elsewhere, {(th, tw, color, depth): member indices} in the order
     the members come)."""
-    headers = [header_for_array(im) for im in images]
-    out: List[Optional[bytes]] = [None] * len(images)
-    groups: Dict[Tuple, List[int]] = {}
-    for i, hd in enumerate(headers):
-        if hd.height == 0 or hd.width == 0:
-            out[i] = flct.empty_container(hd, tile)
-            continue
-        th, tw = flct.clamped_tile_dims(hd.height, hd.width, tile)
-        key = (th, tw, hd.color_type, hd.pixel_depth)
-        groups.setdefault(key, []).append(i)
+    with span("felics.stage.group"):
+        headers = [header_for_array(im) for im in images]
+        out: List[Optional[bytes]] = [None] * len(images)
+        groups: Dict[Tuple, List[int]] = {}
+        for i, hd in enumerate(headers):
+            if hd.height == 0 or hd.width == 0:
+                out[i] = flct.empty_container(hd, tile)
+                continue
+            th, tw = flct.clamped_tile_dims(hd.height, hd.width, tile)
+            key = (th, tw, hd.color_type, hd.pixel_depth)
+            groups.setdefault(key, []).append(i)
     return headers, out, groups
 
 
@@ -125,17 +127,18 @@ def _decode_dispatch(datas: Sequence[bytes], dev, isolate: bool):
     datas)."""
     out: List = [None] * len(datas)
     groups: Dict[Tuple, List[int]] = {}
-    members = _read_members(datas, isolate)
-    for i, m in enumerate(members):
-        if isinstance(m, errors.DecompressionError):
-            out[i] = m
-            continue
-        hd = m[0]
-        if hd.height == 0 or hd.width == 0:
-            out[i] = tiling.empty_image(hd)
-            continue
-        key = (hd.tile_h, hd.tile_w, hd.color_type, hd.pixel_depth)
-        groups.setdefault(key, []).append(i)
+    with span("felics.stage.group"):
+        members = _read_members(datas, isolate)
+        for i, m in enumerate(members):
+            if isinstance(m, errors.DecompressionError):
+                out[i] = m
+                continue
+            hd = m[0]
+            if hd.height == 0 or hd.width == 0:
+                out[i] = tiling.empty_image(hd)
+                continue
+            key = (hd.tile_h, hd.tile_w, hd.color_type, hd.pixel_depth)
+            groups.setdefault(key, []).append(i)
     pending = []
     for idx in groups.values():
         try:

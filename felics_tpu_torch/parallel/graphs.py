@@ -49,6 +49,7 @@ import torch
 
 from felics_tpu_torch.device import pack, unpack
 from felics_tpu_torch.ops import tile_codec
+from felics_tpu_torch.spans import span
 
 MAX_GRAPHS = 32
 MAX_MEMORY_SHARE = 0.25
@@ -91,7 +92,8 @@ class Graph:
 
     def settle(self) -> None:
         """Wait until the last replay is done."""
-        self.event.synchronize()
+        with span("felics.wait"):
+            self.event.synchronize()
 
 
 class _Entry:
@@ -149,6 +151,7 @@ class GraphCache:
         self.dropped = 0  # bytes of evicted graphs not handed back yet
         self.largest = 0  # bytes of the largest graph captured
         self.releases = 0
+        self.evictions = 0  # graphs evicted
 
     @property
     def graphs(self) -> List:
@@ -197,6 +200,7 @@ class GraphCache:
             victim.reclaim()
             self._entries.remove(victim)
             self.dropped += victim.graph.nbytes
+            self.evictions += 1
 
     def _make_room(self) -> None:
         """Before a capture: hand the evicted graphs' pools back when the

@@ -65,7 +65,13 @@ from felics_tpu_torch.format import ColorType, Header, PixelDepth, header_for_ar
 from felics_tpu_torch.ops import tile_codec
 from felics_tpu_torch.ops.bits import bit_length, words_to_bytes
 from felics_tpu_torch.parallel import flct, graphs
+from felics_tpu_torch.spans import span
 
+# Geometry groups that ran the eager chain, per direction (beside
+# graphs.REPLAYS, the groups that replayed a graph), and the synchronous
+# redos of ``shard_finish``; callers reset them to 0 to see what a run did.
+EAGER = {"encode": 0, "decode": 0}
+REDOS = {"width": 0, "capacity": 0}
 
 # ---------------------------------------------------------------------------
 # Encode
@@ -308,17 +314,20 @@ def shard_finish(p: ShardPending) -> Tuple[np.ndarray, bytes, List[np.ndarray]]:
         total = int(((bits_np + 31) // 32).sum())
         with on_device(p.tiles.device):
             if max_bits > 32 * p.W:
+                REDOS["width"] += 1
                 p.W = exact_width(max_bits)
                 p.words, p.bits = tile_codec.encode_tiles(
                     p.tiles, p.cfg, p.th, p.tw, p.W, p.prior)
                 (pay_np,) = HostCopy(aligned_payload(p.words, p.bits, total)[0]).wait()
             elif int(total_np[0]) > p.cap:
+                REDOS["capacity"] += 1
                 (pay_np,) = HostCopy(aligned_payload(p.words, p.bits, total)[0]).wait()
         tile_codec.observe_width(p.cfg, t, c, max_bits)
         observe_payload(p.cfg, t, c, total, nt)
         tile_bytes = (bits_np + 7) // 8
-        return (tile_bytes, flct.strip_word_alignment(pay_np, tile_bytes),
-                [e.copy() for e in extra])
+        with span("felics.finish.strip"):
+            payload = flct.strip_word_alignment(pay_np, tile_bytes)
+        return tile_bytes, payload, [e.copy() for e in extra]
     finally:
         p.result.release()
 
@@ -343,13 +352,14 @@ def pack_containers(
     """One container per image from the tiles' byte lengths and streams in
     tile order (``counts[i]`` tiles for image i); ``k0`` None writes v0."""
     out, t0, p0 = [], 0, 0
-    for i, (hd, n_t) in enumerate(zip(headers, counts)):
-        tb = tile_bytes[t0 : t0 + n_t]
-        p1 = p0 + int(tb.sum())
-        out.append(flct.pack_tiled_container(
-            hd, tw, th, tb, payload[p0:p1], None if k0 is None else k0[i],
-        ))
-        t0, p0 = t0 + n_t, p1
+    with span("felics.finish.pack"):
+        for i, (hd, n_t) in enumerate(zip(headers, counts)):
+            tb = tile_bytes[t0 : t0 + n_t]
+            p1 = p0 + int(tb.sum())
+            out.append(flct.pack_tiled_container(
+                hd, tw, th, tb, payload[p0:p1], None if k0 is None else k0[i],
+            ))
+            t0, p0 = t0 + n_t, p1
     return out
 
 
@@ -389,15 +399,18 @@ def encode_group_dispatch(
     through ``encode_dispatch``, the eager chain. A hint that moves makes
     a new key. ``encode_finish`` finishes either. Never waits on the
     device."""
-    key = encode_key(images, headers, th, tw, k_prior, device)
+    with span("felics.stage.key"):
+        key = encode_key(images, headers, th, tw, k_prior, device)
     lease = None if key is None else graphs.cache(device).acquire(
         key, lambda: _capture_encode(key, device))
     if lease is None:
+        EAGER["encode"] += 1
         return encode_dispatch(images, headers, th, tw, k_prior, device)
     _, _, _, _, depth, n, h, w, W, cap, _ = key
     g = lease.graph
-    np.stack(images, out=g.host_in.numpy().view(images[0].dtype).reshape(
-        (n,) + images[0].shape))
+    host = g.host_in.numpy().view(images[0].dtype).reshape((n,) + images[0].shape)
+    with span("felics.stage.fill"):
+        np.stack(images, out=host)
     with on_device(device):
         g.replay()
     o = g.outputs
@@ -634,23 +647,27 @@ def decode_group_dispatch(
     its key is seen, then one replay of the key's graph; any other group
     through ``decode_dispatch``, the eager chain. ``decode_finish``
     finishes either. Never waits on the device."""
-    key = decode_key(headers, device)
+    with span("felics.stage.key"):
+        key = decode_key(headers, device)
     h0 = headers[0]
     lease = None if key is None else graphs.cache(device).acquire(
         key, lambda: _capture_decode(key, h0, device))
     if lease is None:
+        EAGER["decode"] += 1
         return decode_dispatch(headers, payloads, device)
-    cfg = tiled_config_for_depth(h0.pixel_depth)
-    lens = np.concatenate([hd.tile_lengths for hd in headers]).astype(np.int64)
-    priors = np.stack([flct.prior_from_k0(hd.k0, cfg, h0.num_channels) for hd in headers])
     host = lease.graph.host_in.numpy()
-    o1 = lens.nbytes
-    o2 = o1 + priors.nbytes
-    host[:o1].view(np.int64)[:] = lens
-    host[o1:o2].view(np.int32)[:] = priors.reshape(-1)
-    for p in payloads:
-        host[o2 : o2 + len(p)] = np.frombuffer(p, np.uint8)
-        o2 += len(p)
+    with span("felics.stage.fill"):
+        cfg = tiled_config_for_depth(h0.pixel_depth)
+        lens = np.concatenate([hd.tile_lengths for hd in headers]).astype(np.int64)
+        priors = np.stack([flct.prior_from_k0(hd.k0, cfg, h0.num_channels)
+                           for hd in headers])
+        o1 = lens.nbytes
+        o2 = o1 + priors.nbytes
+        host[:o1].view(np.int64)[:] = lens
+        host[o1:o2].view(np.int32)[:] = priors.reshape(-1)
+        for p in payloads:
+            host[o2 : o2 + len(p)] = np.frombuffer(p, np.uint8)
+            o2 += len(p)
     with on_device(device):
         lease.graph.replay()
     return lease
@@ -694,8 +711,11 @@ def decode_finish(p) -> Tuple[List[np.ndarray], np.ndarray]:
     are copied out of the pinned buffer, which is then released."""
     try:
         flags, *imgs = p.wait()
-        imgs = [(im if im.dtype == np.uint8 else im.view(np.uint16)).copy() for im in imgs]
-        return imgs, flags.copy()
+        with span("felics.finish.copy_out"):
+            imgs = [(im if im.dtype == np.uint8 else im.view(np.uint16)).copy()
+                    for im in imgs]
+            flags = flags.copy()
+        return imgs, flags
     finally:
         p.release()
 

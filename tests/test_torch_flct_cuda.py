@@ -562,3 +562,35 @@ def test_cuda_graph_cache_hands_evicted_pools_back(cuda, native_codec):
         assert cache.releases - releases >= len(images) - 1
     finally:
         cache.max_bytes = saved
+
+
+@pytest.mark.cuda
+def test_cuda_graph_path_spans_stay_host_events(cuda):
+    """A profiled graph-path encode and decode of 12 gray8 512x512 images at
+    tile 64 (keys captured first) records the port's spans as host events
+    only: no device event carries a ``felics.`` name, since no span encloses
+    an upload, a replay or a copy back. A trace reader that files every
+    CUDA-typed event as device work then never counts a span."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from felics_tpu_torch.parallel import graphs
+
+    images = [_image(80 + i, (512, 512), np.uint8, True) for i in range(12)]
+    tc = TileConfig(64, 64)
+    blobs = _until_replayed(lambda: batch.compress_tiled_batch(images, tc, device=cuda),
+                            "encode")[-1]
+    _until_replayed(lambda: batch.decompress_tiled_batch(blobs, device=cuda), "decode")
+    replays = dict(graphs.REPLAYS)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        again = batch.compress_tiled_batch(images, tc, device=cuda)
+        outs = batch.decompress_tiled_batch(blobs, device=cuda)
+    assert graphs.REPLAYS == {"encode": replays["encode"] + 1,
+                              "decode": replays["decode"] + 1}
+    assert again == blobs and all(np.array_equal(o, im) for o, im in zip(outs, images))
+    events = list(prof.events())
+    spans = [e for e in events if e.name.startswith("felics.")]
+    assert {e.name for e in spans} == {
+        "felics.stage.group", "felics.stage.key", "felics.stage.fill", "felics.wait",
+        "felics.finish.strip", "felics.finish.pack", "felics.finish.copy_out"}
+    assert all(e.device_type.name == "CPU" for e in spans)
+    assert any(e.device_type.name == "CUDA" for e in events)  # the device was traced
