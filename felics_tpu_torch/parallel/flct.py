@@ -166,21 +166,3 @@ def empty_container(header: Header, tile: TileConfig) -> bytes:
 def clamped_tile_dims(h: int, w: int, tile: TileConfig) -> Tuple[int, int]:
     """Tile dims clamped to the image, never below 2x2."""
     return max(2, min(tile.tile_h, h)), max(2, min(tile.tile_w, w))
-
-
-def strip_word_alignment(pay_np: np.ndarray, tile_bytes: np.ndarray) -> bytes:
-    """Drop the <= 3 pad bytes that end each tile of a word-aligned payload,
-    and anything past the last tile, giving the exact concatenation of the
-    tiles' byte streams."""
-    tb = np.asarray(tile_bytes, np.int64)
-    padded = ((tb + 3) // 4) * 4
-    pads = padded - tb
-    n_pads = int(pads.sum())
-    if n_pads == 0:
-        return pay_np[: int(padded.sum())].tobytes()
-    ends = np.cumsum(padded)
-    base = np.repeat(ends - pads, pads)
-    off = np.arange(n_pads) - np.repeat(np.cumsum(pads) - pads, pads)
-    keep = np.ones(int(ends[-1]), bool)
-    keep[base + off] = False
-    return pay_np[: int(ends[-1])][keep].tobytes()

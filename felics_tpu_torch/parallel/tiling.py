@@ -11,11 +11,12 @@ Each direction is a dispatch half, which enqueues the whole device chain and
 never waits on the device, and a finish half, which waits on the chain's
 event and works on the host. Encode dispatch: one staged upload of a
 group's images, edge-pad, YCoCg and cut tiles on the device; one exact
-int64 k0/prior pass; the encode kernel at the width hint; word-aligned
-compaction into a buffer of hinted capacity; one copy to pinned host
-memory. Encode finish: relaunch at the exact width if a stream outgrew the
-hint, redo the compaction at the exact size if it outgrew the capacity,
-then strip the alignment and pack the containers. Decode dispatch: one
+int64 k0/prior pass; the encode kernel at the width hint; exact-byte
+compaction (the tiles' byte streams back to back) into a buffer of hinted
+capacity; one copy to pinned host memory. Encode finish: relaunch at the
+exact width if a stream outgrew the hint, redo the compaction at the exact
+size if it outgrew the capacity, then take the payload as one slice of the
+pinned buffer and pack the containers. Decode dispatch: one
 staged upload of the payload, length table, priors and tile owners; (n,
 wd) word rows; the decode kernel; crop, inverse YCoCg and a range check on
 the device (one pass over a same-shape batch); one copy to pinned host
@@ -63,7 +64,7 @@ from felics_tpu_torch.device import (
 )
 from felics_tpu_torch.format import ColorType, Header, PixelDepth, header_for_array
 from felics_tpu_torch.ops import tile_codec
-from felics_tpu_torch.ops.bits import bit_length, words_to_bytes
+from felics_tpu_torch.ops.bits import bit_length
 from felics_tpu_torch.parallel import flct, graphs
 from felics_tpu_torch.spans import span
 
@@ -197,21 +198,25 @@ def observe_payload(cfg: CodingConfig, t: int, c: int, total_words: int, nt: int
     _cap_hints[key] = max(_cap_hints.get(key, 0), -(-int(total_words) // nt))
 
 
-def aligned_payload(words: torch.Tensor, bits: torch.Tensor, cap: int):
-    """Word-aligned compaction on the device, without waiting on it: each
-    tile's used words, in tile order, gathered into ``cap`` words (zero past
-    the last used one) as big-endian bytes, and the used word count (1,).
-    Every tile starts on a 4-byte boundary; ``flct.strip_word_alignment``
-    drops the pad bytes. Words past ``cap`` are dropped: the caller compares
-    the count with ``cap``."""
+def byte_payload(words: torch.Tensor, bits: torch.Tensor, cap: int):
+    """Exact-byte compaction on the device, without waiting on it: each
+    tile's first (bits + 7) // 8 bytes of its big-endian words, in tile
+    order, gathered into ``4 * cap`` bytes (zero past the last used one),
+    and the used byte count (1,). A tile's byte count is clamped to its
+    row's 4 * W, so a stream that outgrew the width reads no word past its
+    row. Bytes past ``4 * cap`` are dropped: the caller compares the count
+    with ``4 * cap``. Indices are int32 while every one fits."""
     n, W = words.shape
-    used = ((bits + 31) // 32).clamp(max=W)
-    ends = torch.cumsum(used, 0)
-    j = torch.arange(cap, device=words.device)
-    tile = torch.searchsorted(ends, j, right=True).clamp(max=n - 1)
-    off = (j - (ends - used)[tile]).clamp(0, W - 1)
-    out = torch.where(j < ends[-1], words[tile, off], 0)
-    return words_to_bytes(out), ends[-1:]
+    narrow = 4 * max(cap, n * W) < 2**31
+    idx = torch.int32 if narrow else torch.int64
+    lens = ((bits + 7) // 8).clamp(max=4 * W).to(idx)
+    ends = torch.cumsum(lens, 0, dtype=idx)
+    j = torch.arange(4 * cap, dtype=idx, device=words.device)
+    tile = torch.searchsorted(ends, j, right=True, out_int32=narrow).clamp_(max=n - 1)
+    o = (j - (ends - lens).index_select(0, tile)).clamp_(0, 4 * W - 1)
+    w = words.reshape(-1).index_select(0, tile * W + (o >> 2))
+    b = (w >> (24 - 8 * (o & 3))) & 255
+    return torch.where(j < ends[-1], b, 0).to(torch.uint8), ends[-1:]
 
 
 def tile_priors(tiles, counts, th, tw, cfg, k_prior: bool):
@@ -263,7 +268,7 @@ class ShardPending:
     words: torch.Tensor
     bits: torch.Tensor
     cap: int
-    # bits, used word count, payload bytes, then the extras: a HostCopy, or
+    # bits, used byte count, payload bytes, then the extras: a HostCopy, or
     # the lease of a graph replay
     result: HostCopy
 
@@ -284,16 +289,16 @@ def shard_dispatch(
     *extra: torch.Tensor,
 ) -> ShardPending:
     """Enqueue the encode chain of tiles and their prior on their device's
-    current stream: one encode launch at the width hint, the compaction
-    into a buffer of hinted capacity and one copy to the host of the bit
-    counts, the used word count, the payload and ``extra`` (tensors on the
-    same device). Never waits on the device. The step every shard of a
+    current stream: one encode launch at the width hint, the exact-byte
+    compaction into a buffer of hinted capacity and one copy to the host of
+    the bit counts, the used byte count, the payload and ``extra`` (tensors
+    on the same device). Never waits on the device. The step every shard of a
     sharded encode runs."""
     nt, c, t = tiles.shape
     W = tile_codec.width_hint(cfg, t, c)
     words, bits = tile_codec.encode_tiles(tiles, cfg, th, tw, W, prior)
     cap = payload_cap_hint(cfg, nt, t, c)
-    pay, total = aligned_payload(words, bits, cap)
+    pay, total = byte_payload(words, bits, cap)
     return ShardPending(
         cfg, th, tw, tiles, prior, W, words, bits, cap,
         HostCopy(bits, total, pay, *extra),
@@ -311,22 +316,25 @@ def shard_finish(p: ShardPending) -> Tuple[np.ndarray, bytes, List[np.ndarray]]:
         bits_np, total_np, pay_np, *extra = p.result.wait()
         nt, c, t = p.tiles.shape
         max_bits = int(bits_np.max())
-        total = int(((bits_np + 31) // 32).sum())
+        tile_bytes = (bits_np + 7) // 8
+        total = int(tile_bytes.sum())
         with on_device(p.tiles.device):
-            if max_bits > 32 * p.W:
+            redo = max_bits > 32 * p.W
+            if redo:
                 REDOS["width"] += 1
                 p.W = exact_width(max_bits)
                 p.words, p.bits = tile_codec.encode_tiles(
                     p.tiles, p.cfg, p.th, p.tw, p.W, p.prior)
-                (pay_np,) = HostCopy(aligned_payload(p.words, p.bits, total)[0]).wait()
-            elif int(total_np[0]) > p.cap:
+            elif int(total_np[0]) > 4 * p.cap:
                 REDOS["capacity"] += 1
-                (pay_np,) = HostCopy(aligned_payload(p.words, p.bits, total)[0]).wait()
+                redo = True
+            if redo:
+                exact = byte_payload(p.words, p.bits, -(-total // 4))[0]
+                (pay_np,) = HostCopy(exact).wait()
         tile_codec.observe_width(p.cfg, t, c, max_bits)
-        observe_payload(p.cfg, t, c, total, nt)
-        tile_bytes = (bits_np + 7) // 8
+        observe_payload(p.cfg, t, c, int(((bits_np + 31) // 32).sum()), nt)
         with span("felics.finish.strip"):
-            payload = flct.strip_word_alignment(pay_np, tile_bytes)
+            payload = pay_np[:total].tobytes()
         return tile_bytes, payload, [e.copy() for e in extra]
     finally:
         p.result.release()
@@ -422,7 +430,7 @@ def encode_group_dispatch(
 
 def _capture_encode(key, device: torch.device) -> graphs.Graph:
     """The graph of a same-shape encode key: from the images' bytes to the
-    copy ``encode_dispatch`` makes (bit counts, used word count, payload,
+    copy ``encode_dispatch`` makes (bit counts, used byte count, payload,
     k0), through the same ops."""
     _, th, tw, c, depth, n, h, w, W, cap, k_prior = key
     cfg = tiled_config_for_depth(depth)
@@ -435,7 +443,7 @@ def _capture_encode(key, device: torch.device) -> graphs.Graph:
         tiles = image_tiles(as_pixels(dev_in.view(narrow).reshape(shape)), th, tw)
         k0, prior = tile_priors(tiles, [per] * n, th, tw, cfg, k_prior)
         words, bits = tile_codec.encode_tiles(tiles, cfg, th, tw, W, prior)
-        pay, total = aligned_payload(words, bits, cap)
+        pay, total = byte_payload(words, bits, cap)
         return [bits, total, pay, k0], {"tiles": tiles, "prior": prior,
                                         "words": words, "bits": bits}
 

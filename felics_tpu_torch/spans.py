@@ -20,7 +20,7 @@ kernels and copies. Spans are named by what the host does:
                             cache, which may capture)
     felics.stage.fill       a batch's bytes written into pinned host memory
     felics.wait             the thread blocked on a device event
-    felics.finish.strip     the word padding removed from an encoded payload
+    felics.finish.strip     the exact payload copied out of pinned memory
     felics.finish.pack      the containers built
     felics.finish.copy_out  decoded images copied out of pinned memory
 """

@@ -564,6 +564,43 @@ def test_cuda_graph_cache_hands_evicted_pools_back(cuda, native_codec):
         cache.max_bytes = saved
 
 
+# Groups whose graph replays under a capacity hint of one word: gray8 at
+# the ingest benchmark's shape and tile, gray16 and rgb8 at tile 32.
+REDO_CLASSES = {
+    "gray8 t64 12x512": ([_image(90 + i, (512, 512), np.uint8, True) for i in range(12)], 64),
+    "gray16 t32": ([_image(110 + i, (256, 256), np.uint16, True) for i in range(3)], 32),
+    "rgb8 t32": ([_image(120 + i, (256, 256, 3), np.uint8, bool(i % 2))
+                  for i in range(3)], 32),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cls", list(REDO_CLASSES))
+def test_cuda_graph_capacity_redo_equals_eager_and_cpu(cuda, monkeypatch, cls):
+    """Once a group's key has been captured, the capacity hint is cut to one
+    word: the new key's graph compacts the payload into 4 bytes, and every
+    call's finish compacts it again at the exact size. Replayed, eager and
+    CPU containers are identical."""
+    from felics_tpu_torch.parallel import graphs
+
+    images, t = REDO_CLASSES[cls]
+    tc = TileConfig(t, t)
+    want = batch.compress_tiled_batch(images, tc, device=CPU)
+    headers = [header_for_array(im) for im in images]
+    for blobs in _until_replayed(lambda: batch.compress_tiled_batch(images, tc, device=cuda),
+                                 "encode"):
+        assert blobs == want
+    monkeypatch.setattr(tiling, "payload_cap_hint", lambda cfg, nt, t, c: 1)
+    redos = tiling.REDOS["capacity"]
+    eager = tiling.encode_finish(tiling.encode_dispatch(images, headers, t, t, True, cuda))
+    assert eager == want and tiling.REDOS["capacity"] == redos + 1
+    replayed = _until_replayed(lambda: batch.compress_tiled_batch(images, tc, device=cuda),
+                               "encode")
+    assert all(blobs == want for blobs in replayed)
+    assert tiling.REDOS["capacity"] == redos + 1 + len(replayed)
+    assert any(g.key[0] == "encode" and g.key[9] == 1 for g in graphs.cache(cuda).graphs)
+
+
 @pytest.mark.cuda
 def test_cuda_graph_path_spans_stay_host_events(cuda):
     """A profiled graph-path encode and decode of 12 gray8 512x512 images at

@@ -173,7 +173,7 @@ def test_forced_redo_gives_the_same_bytes(monkeypatch, force):
     if force in ("capacity", "both"):
         monkeypatch.setattr(tiling, "payload_cap_hint", lambda cfg, nt, t, c: 1)
     encodes = _count_calls(monkeypatch, tcd, "encode_tiles")
-    compactions = _count_calls(monkeypatch, tiling, "aligned_payload")
+    compactions = _count_calls(monkeypatch, tiling, "byte_payload")
     assert batch.compress_tiled_batch(images, TC, device=CPU) == want
     widths = [args[4] for args in encodes]  # two groups, dispatched first
     if force == "capacity":

@@ -205,22 +205,41 @@ def test_word_rows_match_reference():
     assert np.array_equal(got.numpy(), want.view(np.int32))
 
 
-def test_aligned_payload_matches_reference_compaction():
-    rng = np.random.default_rng(9)
-    bits = np.array([37, 64, 1, 200, 95], np.int64)
-    words = rng.integers(-(1 << 31), 1 << 31, (5, 8)).astype(np.int32)
-    used = (bits + 31) // 32
-    words[np.arange(8)[None, :] >= used[:, None]] = 0
-    tb = (bits + 7) // 8
+# Bit counts of the tiles of one compaction, rows of W = 8 words (256 bits):
+# every residue mod 32 (so mod 8) over 1-6 whole words; 1-bit tiles; tiles
+# that fill their row; tiles past their row (middle and last), which the
+# compaction clamps to the row's 32 bytes.
+PAYLOAD_BITS = {
+    "residues": [32 * k + r for k, r in zip(
+        np.random.default_rng(10).integers(1, 7, 32), range(32))],
+    "one bit": [1, 37, 1, 1],
+    "full rows": [256, 5, 256],
+    "past the row": [300, 64, 257, 1000],
+}
+
+
+@pytest.mark.parametrize("room", ["exact", "spare", "short"])
+@pytest.mark.parametrize("bits", list(PAYLOAD_BITS))
+def test_byte_payload_matches_reference_compaction(bits, room):
+    """The exact-byte compaction equals the reference's host compaction of
+    the same word rows, byte for byte, with zeros past the used count; a
+    capacity below the count keeps the payload's first 4 * cap bytes and
+    reports the whole count."""
+    bits = np.array(PAYLOAD_BITS[bits], np.int64)
+    W = 8
+    words = np.random.default_rng(9).integers(
+        -(1 << 31), 1 << 31, (len(bits), W)).astype(np.int32)
+    tb = np.minimum((bits + 7) // 8, 4 * W)
     want = ref._columns_to_payload(words.view(np.uint32), tb)
-    # A capacity of the exact word count, and one with room to spare (zero
-    # past the count).
-    for cap in (int(used.sum()), int(used.sum()) + 5):
-        pay, total = tiling.aligned_payload(
-            torch.from_numpy(words), torch.from_numpy(bits), cap)
-        assert int(total) == int(used.sum()) and pay.numel() == 4 * cap
-        assert flct.strip_word_alignment(pay.numpy(), tb) == want
-        assert not pay[4 * int(used.sum()):].any()
+    n = len(want)
+    cap = -(-n // 4) + {"exact": 0, "spare": 5, "short": -1}[room]
+    pay, total = tiling.byte_payload(torch.from_numpy(words), torch.from_numpy(bits), cap)
+    assert int(total) == n and pay.dtype == torch.uint8 and pay.numel() == 4 * cap
+    if room == "short":
+        assert n > 4 * cap and pay.numpy().tobytes() == want[: 4 * cap]
+    else:
+        assert pay[:n].numpy().tobytes() == want
+        assert not pay[n:].any()
 
 
 def test_to_host_round_trips_mixed_dtypes():
