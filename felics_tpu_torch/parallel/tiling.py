@@ -73,6 +73,8 @@ from felics_tpu_torch.spans import span
 # redos of ``shard_finish``; callers reset them to 0 to see what a run did.
 EAGER = {"encode": 0, "decode": 0}
 REDOS = {"width": 0, "capacity": 0}
+# The span of each redo's host bookkeeping, by its REDOS key.
+REDO_SPANS = {kind: f"felics.finish.redo.{kind}" for kind in REDOS}
 
 # ---------------------------------------------------------------------------
 # Encode
@@ -321,12 +323,14 @@ def shard_finish(p: ShardPending) -> Tuple[np.ndarray, bytes, List[np.ndarray]]:
         with on_device(p.tiles.device):
             redo = max_bits > 32 * p.W
             if redo:
-                REDOS["width"] += 1
-                p.W = exact_width(max_bits)
+                with span(REDO_SPANS["width"]):
+                    REDOS["width"] += 1
+                    p.W = exact_width(max_bits)
                 p.words, p.bits = tile_codec.encode_tiles(
                     p.tiles, p.cfg, p.th, p.tw, p.W, p.prior)
             elif int(total_np[0]) > 4 * p.cap:
-                REDOS["capacity"] += 1
+                with span(REDO_SPANS["capacity"]):
+                    REDOS["capacity"] += 1
                 redo = True
             if redo:
                 exact = byte_payload(p.words, p.bits, -(-total // 4))[0]

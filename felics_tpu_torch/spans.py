@@ -21,6 +21,12 @@ kernels and copies. Spans are named by what the host does:
     felics.stage.fill       a batch's bytes written into pinned host memory
     felics.wait             the thread blocked on a device event
     felics.finish.strip     the exact payload copied out of pinned memory
+    felics.finish.redo.width
+                            a stream outgrew the width hint: the redo
+                            counted and the exact width, before the relaunch
+    felics.finish.redo.capacity
+                            the payload outgrew its capacity: the redo
+                            counted, before the compaction at the exact size
     felics.finish.pack      the containers built
     felics.finish.copy_out  decoded images copied out of pinned memory
 """

@@ -389,10 +389,20 @@ def test_cuda_kernels_on_edge_rows(cuda, h, cls):
 # Same-shape groups on the card replay a CUDA graph of their chain from the
 # second sighting of their key (parallel/graphs.py). Three images of one
 # odd shape per class, at an odd tile.
+def _planar(im):
+    """``im`` with its samples plane after plane in memory, an (H, W, 3)
+    view of (3, H, W) data."""
+    return np.ascontiguousarray(im.transpose(2, 0, 1)).transpose(1, 2, 0)
+
+
 GRAPH_CLASSES = {
     "gray8": ([_image(30 + i, (45, 37), np.uint8, True) for i in range(3)], (8, 6)),
     "rgb8": ([_image(33 + i, (29, 31, 3), np.uint8, True) for i in range(3)], (7, 5)),
     "gray16": ([_image(36 + i, (33, 27), np.uint16, True) for i in range(3)], (6, 8)),
+    "rgb8 planar": ([_planar(_image(33 + i, (29, 31, 3), np.uint8, True)) for i in range(3)],
+                    (7, 5)),
+    "rgb16 planar": ([_planar(_image(39 + i, (21, 18, 3), np.uint16, True))
+                      for i in range(3)], (8, 8)),
 }
 
 

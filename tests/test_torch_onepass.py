@@ -495,6 +495,22 @@ def test_a_moved_hint_makes_a_new_key(monkeypatch):
         images[0][:-1], TileConfig(7, 5), device=CPU))], cuda) is None
 
 
+def test_rgb_memory_layout_leaves_the_key_alone():
+    """RGB images whose samples lie plane after plane in memory (an
+    (H, W, 3) view of (3, H, W) data) key their group as the interleaved
+    copies do: the fill copies either layout into one (H, W, 3) input."""
+    rng = np.random.default_rng(18)
+    interleaved = [rng.integers(0, 256, (40, 24, 3), dtype=np.uint8) for _ in range(2)]
+    planes = [np.ascontiguousarray(im.transpose(2, 0, 1)).transpose(1, 2, 0)
+              for im in interleaved]
+    headers = [header_for_array(im) for im in interleaved]
+    cuda = torch.device("cuda")
+    a = tiling.encode_key(interleaved, headers, 8, 8, True, cuda)
+    assert a is not None
+    assert tiling.encode_key(planes, headers, 8, 8, True, cuda) == a
+    assert tiling.encode_key([planes[0], interleaved[1]], headers, 8, 8, True, cuda) == a
+
+
 def test_payload_bucket_matches_reference():
     for n in (0, 1, 4095, 4096, 4097, 10_000, 1 << 20, (1 << 20) + 1, 123_456_789):
         assert tiling.payload_bucket(n) == ref._bucket_bytes(n)

@@ -139,6 +139,48 @@ def test_a_capacity_redo_is_counted(monkeypatch):
     assert tiling.REDOS == {"width": redos["width"], "capacity": redos["capacity"] + 2}
 
 
+@pytest.mark.parametrize("kind", ["width", "capacity"])
+def test_a_redo_records_one_span_closed_before_its_device_work(kind, monkeypatch):
+    """A width hint seeded at one word makes two rgb8 noise images of one
+    12x12 tile relaunch at the exact width (the least width, 64 words,
+    holds 2,048 bits; such a tile takes about 4,000); a capacity hint
+    seeded at one word makes them compact again at the exact size. Either
+    records one redo span that holds no op of the relaunch or the
+    compaction, counts one redo, and leaves the containers the
+    reference's. (One small tile: the plain encoder under the profiler
+    records every op of its pixel loop.)"""
+    import os
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    sys.path.insert(0, root)
+    try:
+        from h100_bench.reference import flct_ref
+    finally:
+        sys.path.remove(root)
+    from felics_tpu_torch.config import tiled_config_for_depth
+    from felics_tpu_torch.format import PixelDepth
+
+    rng = np.random.default_rng(81)
+    imgs = [rng.integers(0, 256, (12, 12, 3), dtype=np.uint8) for _ in range(2)]
+    key = (12 * 12, 3, tiled_config_for_depth(PixelDepth.EIGHT).pixel_depth)
+    monkeypatch.setattr(tcd, "_w_hints", {key: 1} if kind == "width" else {})
+    monkeypatch.setattr(tiling, "_cap_hints", {key: 1} if kind == "capacity" else {})
+    redos = dict(tiling.REDOS)
+    events = _profiled(lambda: imgs.append(
+        batch.compress_tiled_batch(imgs, TileConfig(12, 12), device=CPU)))
+    blobs = imgs.pop()
+    redo = [e for e in events if e.name.startswith("felics.finish.redo.")]
+    assert [e.name for e in redo] == [tiling.REDO_SPANS[kind]] == [f"felics.finish.redo.{kind}"]
+    (s,) = redo
+    inside = [e.name for e in events if e is not s and e.thread == s.thread
+              and s.time_range.start <= e.time_range.start
+              and e.time_range.end <= s.time_range.end]
+    assert not inside
+    assert tiling.REDOS == {k: v + (k == kind) for k, v in redos.items()}
+    assert blobs == [flct_ref.encode_image(im, (12, 12), CPU) for im in imgs]
+
+
 def test_graph_cache_counts_its_evictions():
     from test_torch_onepass import Capture
 
