@@ -11,18 +11,22 @@ Phases, one line each, any failure exits non-zero and prints no result:
 
 1. card and toolchain: nvidia-smi name and power limit, torch/CUDA/nvcc
    versions, the nvcc build of felics_tpu_torch/csrc (time, ptxas usage;
-   K1 and K2 must have no stack frame and no spills);
+   K1 and K2 must have no stack frame and no spills; K5's are reported);
 2. both FLCT kernels (K1, K2) against their plain PyTorch versions on the
    card, exact to the word, the bit count and the pixel, on small cases
    (gray8 with zero and real priors, rgb8, rgb16, gray16, odd 13x9 at tile
-   5x3, 45x50 at tile 40x24), on noise under a k = 0 prior, on the
+   5x3, 45x50 at tile 40x24; their k0/prior from K5, equal to its plain
+   version), on noise under a k = 0 prior, on the
    relaunch encode_finish makes when a stream outgrows the width hint
    (against a direct launch at that width and the native codec), and K2
    on garbage words;
 3. the main path at full size: 12x512^2 gray8, 8x512^2x3 rgb8 and 4x512^2
    gray16 (bench.py's synthetic recipe, seed 0): K1 and K2 against their
    plain versions at each batch's shapes (tile 32) and timed there and on
-   gray8 at tile 64; then each class at tile 32, and gray8 at tiles 64
+   gray8 at tile 64; K5 (the k0/prior pass) against its plain version on
+   the same device tiles at gray8 t64, rgb8 t32 and gray16 t32 and timed
+   there beside its bound, its plain version and its launches a call; then
+   each class at tile 32, and gray8 at tiles 64
    and 256, through compress_tiled_batch / decompress_tiled_batch on
    device="cuda": exact round trips, containers byte-identical to the
    native C++ FLCT codec, both kernels launched (counters) and both
@@ -308,6 +312,54 @@ def flct_kernel_times(torch, ks, reps: int = 10) -> dict:
             "decode_kernel_ms": device_ms(torch, decode, "flct_decode_kernel", reps),
             "encode_bound": bound(tiles.numel() * 4 + prior.numel() * 4 + used + nt * 8, ops),
             "decode_bound": bound(used + prior.numel() * 4 + tiles.numel() * 4, ops)}
+
+
+# K5's main-path shapes: (class, batch, tile), as the ingest cells and
+# phase 3 run them.
+K5_SHAPES = (("gray8", 64), ("rgb8", 32), ("gray16", 32))
+
+
+def k0_prior_times(np, torch, dev, images, tile, reps: int = 20) -> dict:
+    """K5 (tiling.k0_prior on the card) at one batch's shape, as the encode
+    chain tiles it: its outputs against the plain version run on the same
+    device tiles (exact, or fail), the wrapper's mean ms over `reps` warm
+    calls (CUDA events), its two kernels alone (profiler), the plain
+    version's ms on the card, launches a call, and the bound (the tiles
+    read once and the priors written once at HBM_BYTES_S)."""
+    from felics_tpu_torch.config import tiled_config_for_depth
+    from felics_tpu_torch.device import upload_image
+    from felics_tpu_torch.format import header_for_array
+    from felics_tpu_torch.ops import tile_codec as tcd
+    from felics_tpu_torch.parallel import tiling
+
+    cfg = tiled_config_for_depth(header_for_array(images[0]).pixel_depth)
+    tiles = tiling.image_tiles(upload_image(np.stack(images), dev), tile, tile)
+    nt, c, t = tiles.shape
+    counts = [nt // len(images)] * len(images)
+
+    def kernel():
+        return tiling.k0_prior(tiles, counts, tile, tile, cfg)
+
+    def plain():
+        return tiling.k0_prior_ref(tiles, counts, tile, tile, cfg)
+
+    before = tcd.PRIOR_LAUNCHES
+    k0, prior = kernel()
+    torch.cuda.synchronize()
+    per_call = tcd.PRIOR_LAUNCHES - before
+    want_k0, want_prior = plain()
+    err = max(int((k0.long() - want_k0.long()).abs().max()),
+              int((prior.long() - want_prior.long()).abs().max()))
+    if err or per_call != 2:
+        fail(f"K5 at {len(images)}x{list(images[0].shape)} t{tile}: err {err} against "
+             f"the plain version, {per_call} launches a call")
+    return {"images": len(images), "shape": list(images[0].shape), "tile": tile,
+            "tiles": nt, "planes": c, "K": cfg.num_k, "err": err,
+            "launches_per_call": per_call, "ms": cuda_ms(torch, kernel, reps),
+            "kernel_ms": device_ms(torch, kernel, "flct_k0_", reps),
+            "plain_ms": cuda_ms(torch, plain, 3),
+            "bound": bound(tiles.numel() * 4 + prior.numel() * 4 + k0.numel() * 4,
+                           OPS_PER_STEP * tiles.numel())}
 
 
 def flct_main_path(np, torch, dev, images, tile, reps: int = 5):
@@ -1561,6 +1613,8 @@ def main() -> None:
             len(flct_frames) < 10 or any(any(v) for v in flct_frames.values())):
         fail(f"K1/K2 ptxas (stack, spill stores, spill loads): {flct_frames}")
     say("1 ptxas K1 K2", stack_spill_st_spill_ld=flct_frames)
+    say("1 ptxas K5", stack_spill_st_spill_ld={
+        f: v for f, v in frames.items() if "flct_k0_" in f})
 
     # ---- phase 2: kernels against their plain versions ------------------
     def both_ways(name, tiles, prior, cfg, th, tw, W):
@@ -1611,7 +1665,10 @@ def main() -> None:
         tiles = tiling.image_tiles(upload_image(img, dev)[None], th, tw)
         nt, c, t = tiles.shape
         if use_prior:
-            _, prior = tiling.k0_prior(tiles, [nt], th, tw, cfg)
+            k0, prior = tiling.k0_prior(tiles, [nt], th, tw, cfg)
+            want_k0, want_prior = tiling.k0_prior_ref(tiles, [nt], th, tw, cfg)
+            if not (torch.equal(k0, want_k0) and torch.equal(prior, want_prior)):
+                fail(f"{name}: K5 differs from its plain version")
         else:
             prior = torch.zeros((c, tcd.num_buckets(cfg), cfg.num_k),
                                 dtype=torch.int32, device=dev)
@@ -1708,12 +1765,16 @@ def main() -> None:
     kt["gray8 t64"] = flct_kernel_times(torch, ks)
     say("3 kernels", nvidia_smi=card, cls="gray8",
         **{k: v for k, v in kt["gray8 t64"].items() if not k.endswith("bound")})
+    by_name = dict(classes)
+    k5 = {f"{name} t{tile}": k0_prior_times(np, torch, dev, by_name[name], tile)
+          for name, tile in K5_SHAPES}
+    for cls, row in k5.items():
+        say("3 k0 prior", nvidia_smi=card, cls=cls, **row)
 
     # The main path: each class at tile 32, and gray8 at tiles 64 and 256
     # (256x256 tiles: 48 tiles of 65,536 pixels, one K1 warp a plane and one
     # K2 thread a tile).
-    tcd.ENCODE_LAUNCHES = 0
-    tcd.DECODE_LAUNCHES = 0
+    tcd.ENCODE_LAUNCHES = tcd.DECODE_LAUNCHES = tcd.PRIOR_LAUNCHES = 0
     for d in ("encode", "decode"):
         graphs.REPLAYS[d] = graphs.CAPTURES[d] = 0
     blobs_by_class = {}
@@ -1724,19 +1785,20 @@ def main() -> None:
         if tile == TILE:
             blobs_by_class[name] = (images, blobs)
         say("3 main path", nvidia_smi=card, cls=name, **row)
-    launches = {"encode": tcd.ENCODE_LAUNCHES, "decode": tcd.DECODE_LAUNCHES}
+    launches = {"encode": tcd.ENCODE_LAUNCHES, "decode": tcd.DECODE_LAUNCHES,
+                "prior": tcd.PRIOR_LAUNCHES}
     main_graphs = {"replays": dict(graphs.REPLAYS), "captures": dict(graphs.CAPTURES)}
-    if not (launches["encode"] and launches["decode"]):
-        fail(f"the main path did not launch both kernels: {launches}")
+    if not (launches["encode"] and launches["decode"] and launches["prior"]):
+        fail(f"the main path did not launch K1, K2 and K5: {launches}")
     if not (main_graphs["replays"]["encode"] and main_graphs["replays"]["decode"]):
         fail(f"the main path replayed no graph: {main_graphs}")
     say("3 graphs", **main_graphs)
     # Launches in one batched call of each direction (the gray8 batch).
     tc = TileConfig(TILE, TILE)
     g8 = classes[0][1]
-    tcd.ENCODE_LAUNCHES = tcd.DECODE_LAUNCHES = 0
+    tcd.ENCODE_LAUNCHES = tcd.DECODE_LAUNCHES = tcd.PRIOR_LAUNCHES = 0
     g8_blobs = compress_tiled_batch(g8, tc, device=dev)
-    per_call = {"encode": tcd.ENCODE_LAUNCHES}
+    per_call = {"encode": tcd.ENCODE_LAUNCHES, "prior": tcd.PRIOR_LAUNCHES}
     decompress_tiled_batch(g8_blobs, device=dev)
     per_call["decode"] = tcd.DECODE_LAUNCHES
 
@@ -2105,6 +2167,16 @@ def main() -> None:
               # the 64-bit-position instantiation, on the long row
               wide_launches=long_row["decode_wide_launches"],
               wide_decode_s=long_row["decode_s"], wide_kernel_ms=long_row["k2_kernel_ms"]),
+        entry("flct_k0_prior", "felics_tpu/parallel/tiling.py:285 (XLA, not a TPU kernel)",
+              launches["prior"], per_call["prior"], max(r["err"] for r in k5.values()),
+              k5["gray8 t64"]["ms"], k5["gray8 t64"]["plain_ms"], k5["gray8 t64"]["bound"],
+              shape="gray8 12x512^2, tile 64",
+              full_shape_ms_by_class={c: r["ms"] for c, r in k5.items()},
+              kernel_only_ms_by_class={c: r["kernel_ms"] for c, r in k5.items()},
+              plain_ms_by_class={c: r["plain_ms"] for c, r in k5.items()},
+              bound_ms_by_class={c: r["bound"][0] for c, r in k5.items()},
+              graph_replays=main_graphs["replays"]["encode"],
+              graph_captures=main_graphs["captures"]["encode"]),
         entry("flcs_kscan", "felics_tpu/ops/kscan.py:108", flcs_launches["kscan"],
               flcs_per_call["kscan"], flcs_errs["kscan"], full["gray8"]["kscan_ms"],
               full["gray8"]["kscan_plain_ms"], full["gray8"]["kscan_bound"],
@@ -2296,7 +2368,8 @@ def graphs_only() -> None:
 
 def flct_only() -> None:
     """FLCT alone, to compare two trees in one call: K1 and K2 timed at each
-    class's batch shape (tile 32) and on gray8 at tile 64, then each class
+    class's batch shape (tile 32) and on gray8 at tile 64, K5 at its
+    main-path shapes (K5_SHAPES; a tree without K5 fails there), then each class
     through the batched pair (checked against the native codec). One JSON
     line each. Copy this file into the other tree's root to time that tree."""
     np, torch = need_gpu_and_repo()
@@ -2310,6 +2383,10 @@ def flct_only() -> None:
     for name, images, tile in cases:
         row = flct_kernel_times(torch, flct_kernel_inputs(torch, dev, images, tile))
         print(json.dumps({"nvidia_smi": card, "cls": name, "kernels": row}), flush=True)
+    by_name = dict(classes)
+    for name, tile in K5_SHAPES:
+        row = k0_prior_times(np, torch, dev, by_name[name], tile)
+        print(json.dumps({"nvidia_smi": card, "cls": name, "k0_prior": row}), flush=True)
     for name, images, tile in cases:
         _, row = flct_main_path(np, torch, dev, images, tile)
         print(json.dumps({"nvidia_smi": card, "cls": name, "main_path": row}), flush=True)

@@ -24,7 +24,10 @@ from typing import Optional
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
-SOURCES = ("flct_encode.cu", "flct_decode.cu", "flcs_kscan.cu", "flcs_decode.cu")
+SOURCES = (
+    "flct_encode.cu", "flct_decode.cu", "flct_k0_prior.cu", "flcs_kscan.cu",
+    "flcs_decode.cu",
+)
 HEADERS = ("flct_common.cuh", "flcs_common.cuh")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 # The k counts the kernels are compiled for: the shipped 8-bit and 16-bit
@@ -126,6 +129,10 @@ def library() -> ctypes.CDLL:
         lib.flct_decode.argtypes = [
             vp, vp, i64, vp, i32, i32, i32, i32, i32, i32, i32, i32, i64, i32,
             i32, i32, vp, vp,
+        ]
+        lib.flct_k0_prior.restype = i32
+        lib.flct_k0_prior.argtypes = [
+            vp, vp, i64, vp, vp, vp, i64, i64, i32, i32, i32, i32, i32, i32, vp,
         ]
         lib.flcs_kscan.restype = i32
         lib.flcs_kscan.argtypes = [vp, vp, vp, vp, i32, i64, i32, i32, vp]

@@ -31,17 +31,19 @@ from felics_tpu_torch.ops.bits import (
     MASK32, bit_length, k_select, shl32, shr32, to_i32_bits, to_u32_value,
 )
 
-# Kernel launches made by encode_tiles / decode_tiles (plain-version calls
-# are not counted); DECODE_WIDE_LAUNCHES counts the decode launches that
-# took the 64-bit-position instantiation (decode_wide_positions). Callers
-# reset them to 0 to see what a run launched. A launch made while a CUDA
-# graph is captured is recorded into the graph, not run: it goes into
-# CAPTURED instead, and the graph counts it at each replay
-# (parallel/graphs.py).
+# Kernel launches made by encode_tiles / decode_tiles and by
+# parallel/tiling.py::k0_prior (K5, PRIOR_LAUNCHES: two kernels a call);
+# plain-version calls are not counted. DECODE_WIDE_LAUNCHES counts the
+# decode launches that took the 64-bit-position instantiation
+# (decode_wide_positions). Callers reset them to 0 to see what a run
+# launched. A launch made while a CUDA graph is captured is recorded into
+# the graph, not run: it goes into CAPTURED instead, and the graph counts it
+# at each replay (parallel/graphs.py).
 ENCODE_LAUNCHES = 0
 DECODE_LAUNCHES = 0
 DECODE_WIDE_LAUNCHES = 0
-CAPTURED = {"encode": 0, "decode": 0, "wide": 0}
+PRIOR_LAUNCHES = 0
+CAPTURED = {"encode": 0, "decode": 0, "wide": 0, "prior": 0}
 
 DECODE_MIN_BLOCKS = 384  # flct_decode.cu: blocks to aim for (~3 per SM of an H100)
 
@@ -49,15 +51,18 @@ _I32_MIN, _I32_MAX = -(1 << 31), (1 << 31) - 1
 _SPILL = 16  # word-count alignment of encode_width_bound (reference format)
 
 
-def count_launches(encode: int = 0, decode: int = 0, wide: int = 0) -> None:
+def count_launches(encode: int = 0, decode: int = 0, wide: int = 0, prior: int = 0) -> None:
     """Add kernel runs to the launch counts."""
-    global ENCODE_LAUNCHES, DECODE_LAUNCHES, DECODE_WIDE_LAUNCHES
+    global ENCODE_LAUNCHES, DECODE_LAUNCHES, DECODE_WIDE_LAUNCHES, PRIOR_LAUNCHES
     ENCODE_LAUNCHES += encode
     DECODE_LAUNCHES += decode
     DECODE_WIDE_LAUNCHES += wide
+    PRIOR_LAUNCHES += prior
 
 
-def _launched(**counts: int) -> None:
+def launched(**counts: int) -> None:
+    """Count kernel launches just made: into CAPTURED under a capture, else
+    into the launch counts."""
     if torch.cuda.is_current_stream_capturing():
         for k, v in counts.items():
             CAPTURED[k] += v
@@ -329,7 +334,7 @@ def encode_tiles(
             torch.cuda.current_stream().cuda_stream,
         )
     _build.check(code, "flct_encode")
-    _launched(encode=1)
+    launched(encode=1)
     return words, bits
 
 
@@ -494,5 +499,5 @@ def decode_tiles(
             torch.cuda.current_stream().cuda_stream,
         )
     _build.check(code, "flct_decode")
-    _launched(decode=1, wide=int(wide))
+    launched(decode=1, wide=int(wide))
     return out

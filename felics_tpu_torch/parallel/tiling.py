@@ -11,7 +11,8 @@ Each direction is a dispatch half, which enqueues the whole device chain and
 never waits on the device, and a finish half, which waits on the chain's
 event and works on the host. Encode dispatch: one staged upload of a
 group's images, edge-pad, YCoCg and cut tiles on the device; one exact
-int64 k0/prior pass; the encode kernel at the width hint; exact-byte
+k0/prior pass (``k0_prior``: kernel K5 on CUDA, its plain version on the
+CPU); the encode kernel at the width hint; exact-byte
 compaction (the tiles' byte streams back to back) into a buffer of hinted
 capacity; one copy to pinned host memory. Encode finish: relaunch at the
 exact width if a stream outgrew the hint, redo the compaction at the exact
@@ -63,7 +64,7 @@ from felics_tpu_torch.device import (
     staged_views, upload,
 )
 from felics_tpu_torch.format import ColorType, Header, PixelDepth, header_for_array
-from felics_tpu_torch.ops import tile_codec
+from felics_tpu_torch.ops import _build, tile_codec
 from felics_tpu_torch.ops.bits import bit_length
 from felics_tpu_torch.parallel import flct, graphs
 from felics_tpu_torch.spans import span
@@ -104,26 +105,9 @@ def image_tiles(imgs: torch.Tensor, th: int, tw: int) -> torch.Tensor:
     )
 
 
-_tile_neighbours: dict = {}  # (th, tw, device) -> a tile's neighbour indices
-
-
-def tile_neighbours(th: int, tw: int, device: torch.device) -> tuple:
-    """The two causal neighbour indices of a th x tw tile's pixels on
-    ``device``, made at first use with a blocking copy and kept: every
-    stream may read them, and so may a graph, whose capture cannot
-    upload."""
-    key = (th, tw, str(device))
-    if key not in _tile_neighbours:
-        _tile_neighbours[key] = tuple(
-            torch.from_numpy(i.astype(np.int64)).to(device)
-            for i in neighbour_indices(th, tw))
-    return _tile_neighbours[key]
-
-
 def image_of_tile(counts: Sequence[int], device: torch.device) -> torch.Tensor:
     """(nt,) int64 owner image of each tile, ``counts[i]`` tiles for image
-    i: made on the device when every image has the same count, as a
-    same-shape group has (no upload, so a graph can hold it), else
+    i, on ``device``: made there when every image has the same count, else
     uploaded."""
     if len(set(counts)) == 1:
         return torch.arange(len(counts) * counts[0], device=device) // counts[0]
@@ -136,18 +120,62 @@ def k0_prior(
     cfg: CodingConfig,
 ):
     """Per-image globally best Rice k per (channel, bucket) and the per-tile
-    k-table seed: (k0 (n_imgs, C, nb) int32, prior (nt, C, nb, K) int32).
+    k-table seed: (k0 (n_imgs, C, nb) int32, prior (nt, C, nb, K) int32),
+    for (nt, C, th*tw) int32 tiles of which image i owns ``counts[i]``, in
+    order.
 
     Exact int64 sums over each image's out-of-range pixels; ties go to the
     largest k, and a bucket no pixel reached gets the largest k (the native
-    codec's uint64 sums and the reference's host pass pick the same). One
+    codec's uint64 sums and the reference's host pass pick the same). CUDA
+    tensors launch K5 (``csrc/flct_k0_prior.cu``: the sums on chip, then
+    the pick), on the current stream and without waiting; CPU tensors run
+    ``k0_prior_ref``, its plain version."""
+    if tiles.dim() != 3 or tiles.dtype != torch.int32:
+        raise ValueError("tiles must be an (nt, C, t) int32 tensor")
+    nt, c, t = tiles.shape
+    if t != th * tw:
+        raise ValueError(f"tile planes hold {t} pixels, not {th}x{tw}")
+    if sum(counts) != nt or any(n < 0 for n in counts):
+        raise ValueError(f"tile counts {list(counts)} do not split {nt} tiles")
+    if tiles.device.type == "cpu":
+        return k0_prior_ref(tiles, counts, th, tw, cfg)
+    if tiles.device.type != "cuda":
+        raise ValueError(f"unsupported device {tiles.device}")
+    nb, K = tile_codec.num_buckets(cfg), cfg.num_k
+    _build.check_kernel_k(K)
+    dev, n = tiles.device, len(counts)
+    tiles = tiles.contiguous()
+    uniform = len(set(counts)) <= 1  # owners tile // counts[0]: no upload
+    owners = None if uniform else image_of_tile(counts, dev)
+    totals = torch.zeros((n, c, nb, K), dtype=torch.int64, device=dev)
+    prior = torch.empty((nt, c, nb, K), dtype=torch.int32, device=dev)
+    k0 = torch.empty((n, c, nb), dtype=torch.int32, device=dev)
+    lib = _build.library()
+    with torch.cuda.device(dev):
+        code = lib.flct_k0_prior(
+            tiles.data_ptr(), None if owners is None else owners.data_ptr(),
+            counts[0] if uniform and n else 1, totals.data_ptr(), prior.data_ptr(),
+            k0.data_ptr(), nt, n, c, th, tw, nb, K, flct.PRIOR_WEIGHT,
+            torch.cuda.current_stream().cuda_stream,
+        )
+    _build.check(code, "flct_k0_prior")
+    tile_codec.launched(prior=int(nt > 0) + int(max(nt, n) > 0))
+    return k0, prior
+
+
+def k0_prior_ref(
+    tiles: torch.Tensor, counts: Sequence[int], th: int, tw: int,
+    cfg: CodingConfig,
+):
+    """Plain PyTorch version of K5 (``k0_prior``'s contract): one
     scatter-add of every pixel's K Rice lengths into its tile's bucket row
     (the reference's one-hot reduction in compute_k0_prior_jax), then one
     of the tiles' rows into their images."""
     nt, c, t = tiles.shape
     dev = tiles.device
     nb, K = tile_codec.num_buckets(cfg), cfg.num_k
-    a_idx, b_idx = tile_neighbours(th, tw, dev)
+    a_idx, b_idx = (torch.from_numpy(i.astype(np.int64)).to(dev)
+                    for i in neighbour_indices(th, tw))
     x = tiles.to(torch.int64)
     v1, v2 = x[..., a_idx], x[..., b_idx]
     low = torch.minimum(v1, v2)
@@ -158,8 +186,7 @@ def k0_prior(
     res = torch.where(below, low - x, x - low - ctx) - 1
     qctx = bit_length(ctx, nb - 1)  # min(bit_length(ctx), nb - 1)
     ks = torch.arange(K, dtype=torch.int64, device=dev)
-    # (nt, C, t, K), built in place: the largest temporary of an encode
-    # graph's pool
+    # (nt, C, t, K), built in place
     wts = (res.unsqueeze(-1) >> ks).add_(ks + 1)
     wts.masked_fill_(~(below | above).unsqueeze(-1), 0)
     row = torch.arange(nt * c, device=dev).reshape(nt, c, 1) * nb + qctx
@@ -441,7 +468,6 @@ def _capture_encode(key, device: torch.device) -> graphs.Graph:
     narrow = torch.uint8 if depth == PixelDepth.EIGHT else torch.int16
     shape = (n, h, w) + ((3,) if c == 3 else ())
     per = math.prod(TileConfig(th, tw).grid(h, w))
-    tile_neighbours(th, tw, device)  # uploaded now: the capture cannot
 
     def body(dev_in):
         tiles = image_tiles(as_pixels(dev_in.view(narrow).reshape(shape)), th, tw)

@@ -1,6 +1,8 @@
 """The FLCT tile kernels K1 (felics_tpu_torch/csrc/flct_encode.cu) and K2
 (felics_tpu_torch/csrc/flct_decode.cu) against their plain versions
-(ops/tile_codec.py: encode_tiles_ref, decode_tiles_ref) and against the
+(ops/tile_codec.py: encode_tiles_ref, decode_tiles_ref), the k0/prior
+kernel K5 (csrc/flct_k0_prior.cu) against its plain version
+(parallel/tiling.py: k0_prior_ref), and K1 and K2 against the
 port's scalar oracle (core/oracle.py: each word row decoded as one tile
 stream in bucketed-k mode), and the plain versions' own round trips.
 
@@ -641,3 +643,169 @@ def test_cuda_graph_path_spans_stay_host_events(cuda):
         "felics.finish.strip", "felics.finish.pack", "felics.finish.copy_out"}
     assert all(e.device_type.name == "CPU" for e in spans)
     assert any(e.device_type.name == "CUDA" for e in events)  # the device was traced
+
+
+# ---------------------------------------------------------------------------
+# K5, the k0/prior pass (csrc/flct_k0_prior.cu) against its plain version
+# (tiling.k0_prior_ref). tests/test_torch_onepass.py holds the plain version
+# to felics_tpu's compute_k0_prior_jax on the same cases (K5_CASES), so the
+# kernel equals the reference through it.
+# ---------------------------------------------------------------------------
+
+
+def _checkerboard16(side):
+    """0 and 65535 alternating: at tile 16 every pixel off a tile's top row
+    and left column lies 65535 out of range, and a 208x208 image's bucket-0
+    sums at k = 0 pass 2^31."""
+    return ((np.arange(side)[:, None] + np.arange(side)[None, :]) % 2 * 65535).astype(np.uint16)
+
+
+def _ramp(step):
+    return np.tile((np.arange(16) * step).astype(np.uint8), (4, 1))
+
+
+# name: (images, tile). Images of one case share a tile; different shapes
+# give different tile counts (the eager path's uploaded owners).
+K5_CASES = {
+    "gray8 t64": ([_image(140 + i, (128, 192), np.uint8, True) for i in range(2)], (64, 64)),
+    "gray8 t32": ([_image(142 + i, (96, 64), np.uint8, bool(i % 2)) for i in range(3)],
+                  (32, 32)),
+    "rgb8 t32": ([_image(145 + i, (64, 96, 3), np.uint8, bool(i % 2)) for i in range(2)],
+                 (32, 32)),
+    "gray16 t32 K=15": ([_image(147 + i, (64, 64), np.uint16, bool(i % 2)) for i in range(2)],
+                        (32, 32)),
+    "rgb16 t16 K=15": ([_image(149, (32, 48, 3), np.uint16, False)], (16, 16)),
+    "gray16 sums past 2^31": ([_checkerboard16(208)], (16, 16)),
+    # residual 0 in bucket 1 (k0 = 0); residual 2 in bucket 2, a tie of k =
+    # 0, 1, 2 that goes to 2; every other bucket empty (K - 1)
+    "ties and empty buckets": ([_ramp(1), _ramp(3)], (4, 16)),
+    "flat: every bucket empty": ([np.full((24, 24), v, np.uint8) for v in (0, 200)], (8, 8)),
+    "mixed tile counts": ([_image(150, (40, 40), np.uint8, True),
+                           _image(151, (72, 24), np.uint8, False),
+                           _image(152, (16, 16), np.uint8, True)], (16, 16)),
+    "gray8 t256": ([_image(153 + i, (256, 512), np.uint8, True) for i in range(2)],
+                   (256, 256)),
+    "odd tile 5x3": ([_image(155, (13, 9), np.uint8, False)], (5, 3)),
+}
+
+
+def k5_inputs(name, device):
+    """(tiles, counts, th, tw, cfg) of a K5 case, tiled as the eager chain
+    tiles a group (image by image when the shapes differ)."""
+    images, (th, tw) = K5_CASES[name]
+    cfg = tiled_config_for_depth(header_for_array(images[0]).pixel_depth)
+    tiles = torch.cat([tiling.image_tiles(upload_image(im, device)[None], th, tw)
+                       for im in images])
+    counts = [int(np.prod(TileConfig(th, tw).grid(*im.shape[:2]))) for im in images]
+    return tiles, counts, th, tw, cfg
+
+
+def _int32_extremes(device):
+    """Uniform int32 planes: residuals past 2^27, so K5 sums warps in 16-bit
+    halves; outside what an image gives, and outside the reference's
+    16-bit split sums."""
+    rng = np.random.default_rng(13)
+    tiles = rng.integers(-(1 << 31), 1 << 31, (4, 3, 64), dtype=np.int64).astype(np.int32)
+    return torch.from_numpy(tiles).to(device), [2, 2], 8, 8, tiled_config_for_depth(
+        PixelDepth.SIXTEEN)
+
+
+def test_k0_prior_on_cpu_runs_the_plain_version():
+    tiles, counts, th, tw, cfg = k5_inputs("mixed tile counts", CPU)
+    before = tcd.PRIOR_LAUNCHES
+    k0, prior = tiling.k0_prior(tiles, counts, th, tw, cfg)
+    want_k0, want_prior = tiling.k0_prior_ref(tiles, counts, th, tw, cfg)
+    assert tcd.PRIOR_LAUNCHES == before
+    assert torch.equal(k0, want_k0) and torch.equal(prior, want_prior)
+    assert k0.shape == (3, 1, 6) and prior.shape == (tiles.shape[0], 1, 6, cfg.num_k)
+
+
+K5_BAD_ARGS = {
+    "int64 tiles": (lambda t, c: (t.long(), c), "int32"),
+    "rank 2": (lambda t, c: (t[:, 0], c), "int32"),
+    "counts short of the tiles": (lambda t, c: (t, c[:-1]), "do not split"),
+    "counts past the tiles": (lambda t, c: (t, c + [1]), "do not split"),
+    "a negative count": (lambda t, c: (t, [c[0] + 1, -1] + c[2:]), "do not split"),
+    "plane of another tile size": (lambda t, c: (t[..., :-1], c), "pixels"),
+}
+
+
+@pytest.mark.parametrize("case", list(K5_BAD_ARGS))
+def test_k0_prior_checks_its_arguments_first(case):
+    """The wrapper's checks raise before the plain version or the kernel
+    runs, and count no launch."""
+    tiles, counts, th, tw, cfg = k5_inputs("mixed tile counts", CPU)
+    bad, match = K5_BAD_ARGS[case]
+    tiles, counts = bad(tiles, counts)
+    before = tcd.PRIOR_LAUNCHES
+    with pytest.raises(ValueError, match=match):
+        tiling.k0_prior(tiles, counts, th, tw, cfg)
+    assert tcd.PRIOR_LAUNCHES == before
+
+
+def test_k0_prior_plain_version_on_int32_extremes():
+    """The plain version's int64 sums on planes no image gives: every
+    coded pixel's Rice lengths summed by hand, in Python ints."""
+    tiles, counts, th, tw, cfg = _int32_extremes(CPU)
+    k0, prior = tiling.k0_prior(tiles, counts, th, tw, cfg)
+    from felics_tpu_torch.core.context import neighbour_indices
+
+    a, b = neighbour_indices(th, tw)
+    K, x = cfg.num_k, tiles.numpy().astype(np.int64)
+    sums = np.zeros((2, 3, 6, K), dtype=object)
+    for tile in range(4):
+        for c in range(3):
+            p = x[tile, c]
+            for j in range(2, th * tw):
+                lo, hi = min(p[a[j]], p[b[j]]), max(p[a[j]], p[b[j]])
+                if lo <= p[j] <= hi:
+                    continue
+                res = int(lo - p[j] - 1 if p[j] < lo else p[j] - hi - 1)
+                q = min(int(hi - lo).bit_length(), 5)
+                sums[tile // 2, c, q] += [(res >> k) + k + 1 for k in range(K)]
+    want = np.array([[[max(k for k in range(K) if r[k] == min(r)) for r in cb] for cb in im]
+                     for im in sums])
+    assert np.array_equal(k0.numpy(), want)
+    assert np.array_equal(prior.numpy(),
+                          flct.PRIOR_WEIGHT * np.abs(np.arange(K) - want[[0, 0, 1, 1], ..., None]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(K5_CASES) + ["int32 extremes (wide warp sums)"])
+def test_cuda_k0_prior_matches_plain_version(cuda, name):
+    """K5 on the card equals the plain version on the CPU, k0 and every
+    tile's prior, in two launches (the sums, then the pick)."""
+    if name in K5_CASES:
+        tiles, counts, th, tw, cfg = k5_inputs(name, CPU)
+    else:
+        tiles, counts, th, tw, cfg = _int32_extremes(CPU)
+    want_k0, want_prior = tiling.k0_prior(tiles, counts, th, tw, cfg)
+    before = tcd.PRIOR_LAUNCHES
+    k0, prior = tiling.k0_prior(tiles.to(cuda), counts, th, tw, cfg)
+    torch.cuda.synchronize()
+    assert tcd.PRIOR_LAUNCHES == before + 2
+    assert k0.device.type == prior.device.type == "cuda"
+    assert k0.dtype == prior.dtype == torch.int32
+    assert torch.equal(k0.cpu(), want_k0) and torch.equal(prior.cpu(), want_prior)
+
+
+@pytest.mark.cuda
+def test_cuda_graph_replay_counts_k5_inside(cuda):
+    """An encode group's eager chain launches K5 twice and K1 once; its
+    graph captures them, and each replay adds the same to the counts."""
+    from felics_tpu_torch.parallel import graphs
+
+    images = [_image(160 + i, (96, 96), np.uint8, True) for i in range(3)]
+    tc = TileConfig(32, 32)
+    want = batch.compress_tiled_batch(images, tc, device=CPU)
+    counts = tcd.PRIOR_LAUNCHES, tcd.ENCODE_LAUNCHES
+    eager = tiling.EAGER["encode"]
+    assert batch.compress_tiled_batch(images, tc, device=cuda) == want
+    assert tiling.EAGER["encode"] == eager + 1
+    assert (tcd.PRIOR_LAUNCHES, tcd.ENCODE_LAUNCHES) == (counts[0] + 2, counts[1] + 1)
+    _until_replayed(lambda: batch.compress_tiled_batch(images, tc, device=cuda), "encode")
+    counts = tcd.PRIOR_LAUNCHES, tcd.ENCODE_LAUNCHES
+    replays = graphs.REPLAYS["encode"]
+    assert batch.compress_tiled_batch(images, tc, device=cuda) == want
+    assert graphs.REPLAYS["encode"] == replays + 1
+    assert (tcd.PRIOR_LAUNCHES, tcd.ENCODE_LAUNCHES) == (counts[0] + 2, counts[1] + 1)

@@ -2,7 +2,8 @@
 (felics_tpu_torch/parallel/tiling.py, graphs.py) against the JAX package,
 on the CPU with the plain PyTorch versions of the kernels:
 
-* the one-pass k0/prior against ``compute_k0_prior_jax``;
+* the one-pass k0/prior against ``compute_k0_prior_jax``, also on the cases
+  tests/test_torch_flct_cuda.py holds kernel K5 to this plain version on;
 * the batched assembly against the per-image one and the reference's
   vmapped ``_assemble_image_body``;
 * the eager same-shape encode chain against ``_fused_encode_chain_images``
@@ -31,6 +32,7 @@ from felics_tpu_torch.device import upload_image
 from felics_tpu_torch.format import PixelDepth, header_for_array
 from felics_tpu_torch.ops import tile_codec as tcd
 from felics_tpu_torch.parallel import flct, graphs, tiling
+from test_torch_flct_cuda import K5_CASES, k5_inputs
 
 CPU = torch.device("cpu")
 torch.set_num_threads(1)
@@ -137,6 +139,22 @@ def test_k0_prior_ties_go_to_the_largest_k():
     want = np.full((2, 1, 6), cfg.num_k - 1)
     want[0, 0, 1], want[1, 0, 2] = 0, 2
     assert np.array_equal(k0.numpy(), want)
+
+
+@pytest.mark.parametrize("name", list(K5_CASES))
+def test_k0_prior_matches_compute_k0_prior_jax_on_the_kernel_cases(name):
+    """The cases tests/test_torch_flct_cuda.py holds K5 to its plain version
+    on: the plain version equals compute_k0_prior_jax there, tile owners
+    as the reference's per-tile image index."""
+    tiles, counts, th, tw, cfg = k5_inputs(name, CPU)
+    k0, prior = tiling.k0_prior(tiles, counts, th, tw, cfg)
+    rcfg = ref_config(cfg.pixel_depth)
+    img = np.repeat(np.arange(len(counts), dtype=np.int32), counts)
+    want_k0, want_prior = ref.compute_k0_prior_jax(
+        jnp.asarray(tiles.numpy()), jnp.asarray(img), th, tw, rcfg,
+        ref_num_buckets(rcfg), len(counts))
+    assert np.array_equal(k0.numpy(), np.asarray(want_k0))
+    assert np.array_equal(prior.numpy(), np.asarray(want_prior))
 
 
 # ---------------------------------------------------------------------------
