@@ -280,7 +280,7 @@ def flct_kernel_inputs(torch, dev, images, tile):
     headers = [header_for_array(im) for im in images]
     p = tiling.encode_dispatch(images, headers, tile, tile, True, dev)
     tiling.encode_finish(p)
-    return {"tiles": p.tiles, "prior": p.prior, "cfg": p.cfg, "tile": tile,
+    return {"tiles": p.tiles, "prior": p.prior, "cfg": p.plan.cfg, "tile": tile,
             "words": p.words, "bits": p.bits}
 
 
@@ -621,26 +621,45 @@ def big_image(np):
     return synth((BIG_SIDE, BIG_SIDE), np.uint8, 1, 6, np)[0]
 
 
+def container_rows(hd, lens, streams, dev):
+    """K2's (n, wd) word rows of tile streams of ``lens`` bytes and the
+    prior of the container ``hd``, on ``dev``: staged in the decode
+    chain's input layout (fill_containers), then its views and word_rows."""
+    from felics_tpu_torch.device import upload_filled
+    from felics_tpu_torch.parallel import tiling
+
+    plan = tiling.decode_plan([hd], lens)
+    buf = upload_filled(plan.in_bytes(), dev, lambda host: tiling.fill_containers(
+        host, plan, [hd], lens, streams))
+    lens_t, priors, payload = tiling.container_views(buf, plan)
+    return tiling.word_rows(payload, lens_t, plan.wd), priors[0]
+
+
 def shard_kernels(torch, dev, big, big_single) -> dict:
     """K1 and K2 against their plain versions at the shapes the sharded
     paths give them on the 4096^2 image: its 4096 tiles as one shard and
     as two shards of 2048 (K2 puts 8 and 4 tiles in a block). K1 runs as a
-    shard does (shard_dispatch, shard_finish), K2 on the word rows
-    decode_shards cuts from the container; one plain run of each over all
+    shard does (encode_images, then shard_dispatch and shard_finish), K2 on
+    the container's word rows, staged as the decode chain stages them
+    (container_rows) and cut as decode_shards cuts them; one plain run of each over all
     the tiles, and every shard's output must equal its rows exactly.
     Returns both errors and the plain runs' seconds."""
     from felics_tpu_torch.format import header_for_array
     from felics_tpu_torch.ops import tile_codec as tcd
     from felics_tpu_torch.parallel import flct, tiling
 
+    from felics_tpu_torch.device import upload_filled
+
     t = BIG_TILE
-    tiles, prior, _, _, cfg = tiling.encode_prepare(
-        [big], [header_for_array(big)], t, t, True, dev)
+    plan = tiling.encode_plan([header_for_array(big)], t, t, True)
+    tiles, _, prior = tiling.encode_images(upload_filled(
+        plan.in_bytes(), dev, lambda host: tiling.fill_images(host, plan, [big])), plan)
+    cfg = plan.cfg
     nt = tiles.shape[0]
     shards = [(0, nt), (0, nt // 2), (nt // 2, nt)]
     done = []
     for lo, hi in shards:
-        p = tiling.shard_dispatch(tiles[lo:hi], prior[lo:hi], cfg, t, t)
+        p = tiling.shard_dispatch(tiles[lo:hi], prior[lo:hi], plan)
         tiling.shard_finish(p)
         done.append(p)
     t0 = time.perf_counter()
@@ -652,9 +671,8 @@ def shard_kernels(torch, dev, big, big_single) -> dict:
                       int(wr[lo:hi, p.W :].count_nonzero()))
                   for p, (lo, hi) in zip(done, shards))
     hd = flct.read_tiled_header(big_single)
-    rows, (prior_t,) = tiling.upload_rows(
-        hd.tile_lengths, [tiling.payload_of(big_single, hd)],
-        tiling.row_width(hd.tile_lengths), [flct.prior_from_k0(hd.k0, cfg, 1)], dev)
+    rows, prior_t = container_rows(hd, hd.tile_lengths, [tiling.payload_of(big_single, hd)],
+                                   dev)
     t0 = time.perf_counter()
     dr = tcd.decode_tiles_ref(rows, cfg, t, t, 1, prior_t)
     torch.cuda.synchronize()
@@ -752,6 +770,7 @@ def group_worker(backend: str, address: str, world: int, rank: int, out_dir: str
     import torch.distributed as dist
 
     from felics_tpu_torch.config import TileConfig
+    from felics_tpu_torch.device import HostCopy
     from felics_tpu_torch.ops import tile_codec as tcd
     from felics_tpu_torch.parallel import flct, mesh, multihost, tiling
 
@@ -796,8 +815,9 @@ def group_worker(backend: str, address: str, world: int, rank: int, out_dir: str
         row["decode_gather_ms"] = call_ms(
             torch, lambda: pm.gather_planes([mesh.narrow_planes(planes, hd)]), 3)[0]
         bufs = pm.gather_planes([mesh.narrow_planes(planes, hd)]).to(torch.int32)
+        plan = tiling.decode_plan([hd], hd.tile_lengths)
         row["decode_assemble_ms"] = call_ms(torch, lambda: tiling.decode_finish(
-            tiling.assemble_dispatch([hd], bufs[: hd.n_tiles])), 3)[0]
+            HostCopy(*tiling.assembled(plan, bufs[: hd.n_tiles]))), 3)[0]
     row["exact_round_trip"] = True
     blobs = results.get("corpus", []) + [blob]
     for i, b in enumerate(blobs):
@@ -1062,7 +1082,7 @@ def host_backends(np, torch, dev, card, classes) -> dict:
             planes.append(got)
         oracle_s = time.perf_counter() - t0
         lens = np.array([len(s) for s in streams], np.int64)
-        rows, (prior_t,) = tiling.upload_rows(lens, streams, tiling.row_width(lens), [prior], dev)
+        rows, prior_t = container_rows(hd, lens, streams, dev)
         k2 = tcd.decode_tiles(rows, cfg, TILE, TILE, c, prior_t).cpu().numpy()
         if not np.array_equal(k2, np.stack(planes)):
             fail(f"K2 {name}: planes differ from the oracle's")
@@ -1150,11 +1170,11 @@ def edge_tile_kernels(torch, dev, name, images, tile) -> int:
                                    True, dev)
         tiling.encode_finish(p)
         c = p.tiles.shape[1]
-        wk, bk = tcd.encode_tiles(p.tiles, p.cfg, th, tw, p.W, p.prior)
-        dk = tcd.decode_tiles(wk, p.cfg, th, tw, c, p.prior)
+        wk, bk = tcd.encode_tiles(p.tiles, p.plan.cfg, th, tw, p.W, p.prior)
+        dk = tcd.decode_tiles(wk, p.plan.cfg, th, tw, c, p.prior)
         tiles, prior, wk, bk, dk = (t.cpu() for t in (p.tiles, p.prior, wk, bk, dk))
-        wr, br = tcd.encode_tiles_ref(tiles, p.cfg, th, tw, p.W, prior)
-        dr = tcd.decode_tiles_ref(wk, p.cfg, th, tw, c, prior)
+        wr, br = tcd.encode_tiles_ref(tiles, p.plan.cfg, th, tw, p.W, prior)
+        dr = tcd.decode_tiles_ref(wk, p.plan.cfg, th, tw, c, prior)
         if not (torch.equal(wk, wr) and torch.equal(bk, br) and torch.equal(dk, dr)
                 and torch.equal(dk, tiles)):
             fail(f"10 edges {name} at tile {th}x{tw} ({len(grp)} images): K1/K2 "
@@ -1422,7 +1442,9 @@ def graph_phase(np, torch, dev, card, classes) -> dict:
         say("11 graphs", nvidia_smi=card, cls=name, tile=tile, images=len(images),
             chunk=n, launches=launched, bytes_equal_native=True, bytes_equal_eager=True,
             exact_round_trip=True, **row)
-    pools = [{"key": [str(k) for k in g.key[:8]], "pool_bytes": g.pool_bytes,
+    pools = [{"key": [str(g.key.direction), g.key.tile_h, g.key.tile_w, g.key.num_channels,
+                      str(g.key.pixel_depth), len(g.key.dims), *g.key.dims[0]],
+              "pool_bytes": g.pool_bytes,
               "input_bytes": g.dev_in.numel()} for g in graphs.cache(dev).graphs]
     say("11 pools", nvidia_smi=card, graphs=len(pools),
         pool_bytes=sum(p["pool_bytes"] for p in pools),
@@ -1715,12 +1737,12 @@ def main() -> None:
     if not (hint == 64 and relaunches == 1 and p.W == tiling.exact_width(max_bits) > hint):
         fail(f"encode_finish did not relaunch once at the exact width (hint {hint}, "
              f"W {p.W}, {relaunches} relaunches, {max_bits} bits)")
-    wk, bk = tcd.encode_tiles(p.tiles, p.cfg, TILE, TILE, p.W, p.prior)
+    wk, bk = tcd.encode_tiles(p.tiles, p.plan.cfg, TILE, TILE, p.W, p.prior)
     if not (torch.equal(wk, p.words) and torch.equal(bk, p.bits)):
         fail("encode_finish's relaunch differs from a direct launch at that width")
     if blob != native.compress_tiled(noise, hd, TILE, TILE):
         fail("the relaunched container differs from the native codec")
-    e, d, _ = both_ways("gray8 64x64 noise t32, relaunched W", p.tiles, p.prior, p.cfg,
+    e, d, _ = both_ways("gray8 64x64 noise t32, relaunched W", p.tiles, p.prior, p.plan.cfg,
                         TILE, TILE, p.W)
     errs["encode"], errs["decode"] = max(errs["encode"], e), max(errs["decode"], d)
     say("2 kernels", case="gray8 noise relaunch in encode_finish", first_W=hint,

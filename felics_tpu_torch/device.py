@@ -16,7 +16,7 @@ CPU the same calls run without streams or pinning.
 from __future__ import annotations
 
 import contextlib
-from typing import List, Sequence, Tuple
+from typing import Callable, List, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -60,41 +60,39 @@ def on_device(device: torch.device):
     return contextlib.nullcontext()
 
 
-def stage(arrays: Sequence[np.ndarray], device: torch.device) -> Tuple[torch.Tensor, List[int]]:
-    """numpy arrays -> one uint8 buffer on ``device`` holding their bytes,
-    and each array's byte offset in it: one host staging buffer, one copy.
-    Each array starts at a multiple of its item size, so uint8 arrays in a
-    row lie back to back."""
+def upload_filled(
+    nbytes: int, device: torch.device, fill: Callable[[np.ndarray], None]
+) -> torch.Tensor:
+    """A uint8 buffer of ``nbytes`` on ``device`` holding what ``fill(host)``
+    writes into a host staging buffer (a uint8 numpy array; pinned on
+    CUDA): one copy, never waiting."""
+    host = torch.empty(nbytes, dtype=torch.uint8, pin_memory=device.type == "cuda")
+    flat = host.numpy()  # outside the span: it records an aten::to
+    with span("felics.stage.fill"):
+        fill(flat)
+    return host.to(device, non_blocking=True)
+
+
+def upload(arrays: Sequence[np.ndarray], device: torch.device) -> List[torch.Tensor]:
+    """numpy arrays -> tensors of their shapes on ``device``: views of one
+    staged buffer (``upload_filled``), each array at a multiple of its item
+    size; uint16 arrives as int16 bit patterns."""
+    arrays = [np.asarray(a) for a in arrays]
     offsets, total = [], 0
     for a in arrays:
         total = -(-total // a.itemsize) * a.itemsize
         offsets.append(total)
         total += a.nbytes
-    host = torch.empty(total, dtype=torch.uint8, pin_memory=device.type == "cuda")
-    flat = host.numpy()
-    with span("felics.stage.fill"):
+
+    def fill(flat):
         for a, off in zip(arrays, offsets):
             flat[off : off + a.nbytes] = np.ascontiguousarray(a).reshape(-1).view(np.uint8)
-    return host.to(device, non_blocking=True), offsets
 
-
-def staged_views(
-    buf: torch.Tensor, offsets: Sequence[int], arrays: Sequence[np.ndarray]
-) -> List[torch.Tensor]:
-    """The tensors of ``arrays``' dtypes and shapes at ``offsets`` of a
-    buffer ``stage`` filled (uint16 as int16 bit patterns)."""
+    buf = upload_filled(total, device, fill)
     return [
         buf[off : off + a.nbytes].view(_TORCH_DTYPES[a.dtype]).reshape(a.shape)
         for a, off in zip(arrays, offsets)
     ]
-
-
-def upload(arrays: Sequence[np.ndarray], device: torch.device) -> List[torch.Tensor]:
-    """numpy arrays -> tensors of their shapes on ``device`` (views of one
-    staged buffer; uint16 arrives as int16 bit patterns)."""
-    arrays = [np.asarray(a) for a in arrays]
-    buf, offsets = stage(arrays, device)
-    return staged_views(buf, offsets, arrays)
 
 
 def as_pixels(t: torch.Tensor) -> torch.Tensor:

@@ -9,8 +9,9 @@ port runs the same chain as PyTorch ops, a launch each (88-101 for an
 encode batch and 36-49 for a decode batch of the H100 classes), and
 captures a key's chain into a
 ``torch.cuda.CUDAGraph``, so that a batch costs one graph launch and two
-copies. ``tiling.encode_group_dispatch`` / ``decode_group_dispatch`` make
-the keys and the chains' bodies; this module holds the cache.
+copies. A key is a group's plan (``tiling.EncodePlan`` / ``DecodePlan``),
+and the body captured is the one the eager path runs (``tiling.run_chain``
+of ``encode_chain`` / ``decode_chain``); this module holds the cache.
 
 The first time a key is seen the caller runs its eager chain. That run also
 loads the kernels and settles the width and capacity hints the key holds,

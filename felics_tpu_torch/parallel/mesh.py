@@ -6,23 +6,23 @@ its tests run over a mesh (``multihost.encode_corpus_multihost`` given a
 mesh; here ``encode_corpus_sharded``). A mesh is a tuple of
 ``torch.device``s; one device may appear more than once.
 
-Encode: the tiles and the exact k0/prior pass are made once, on the mesh's
-first device (``tiling.encode_prepare``); the tile count is padded with
-zero tiles to a multiple of the mesh size; each device gets a contiguous
-slice of the tiles and its priors and dispatches its encode kernel (K1)
-chain under itself without waiting (``tiling.shard_dispatch``); then every
-shard is finished (``tiling.shard_finish``: the relaunch at the exact width
-and the recompaction stay shared with the one-device path), and one
+Encode: the one-device chain's first half (``tiling.encode_images``: tiles
+and the exact k0/prior pass) runs once, on the mesh's first device; the
+tile count is padded with zero tiles to a multiple of the mesh size; each
+device gets a contiguous slice of the tiles and its priors and dispatches
+the second half under itself without waiting (``tiling.shard_dispatch``);
+then every shard is finished (``tiling.shard_finish``: the relaunch at the
+exact width and the recompaction stay shared with the one-device path), and one
 container is packed from the per-tile byte counts and streams gathered in
 tile order, the padding tiles dropped. A tile's stream depends on nothing
 but its pixels and its prior, so the bytes equal
 ``tiling.compress_tiled_bytes`` on one device.
 
-Decode: each device gets only its own tiles' word rows, built from the
-container's length table (a padding slot repeats tile 0, a valid stream);
-the decode kernel (K2) runs per shard; the planes are gathered onto the
-first device in tile order and assembled, range-checked and cropped there
-(the process groups gather them narrowed, ``narrow_planes``).
+Decode: each device stages only its own tiles' streams (a padding slot
+repeats tile 0, a valid stream) and runs the one-device chain's first half
+on them (``tiling.decode_planes``: word rows, K2); the planes are gathered
+onto the first device in tile order and assembled, range-checked and
+cropped there (the process groups gather them narrowed, ``narrow_planes``).
 A truncated payload raises ``IoError``, a value outside the depth
 ``InvalidValue``, as the one-device path does.
 
@@ -43,10 +43,9 @@ import numpy as np
 import torch
 
 from felics_tpu_torch import errors
-from felics_tpu_torch.config import TileConfig, tiled_config_for_depth
-from felics_tpu_torch.device import on_device, resolve_device
+from felics_tpu_torch.config import TileConfig
+from felics_tpu_torch.device import HostCopy, on_device, resolve_device, upload_filled
 from felics_tpu_torch.format import Header, PixelDepth
-from felics_tpu_torch.ops import tile_codec
 from felics_tpu_torch.parallel import batch, flct, tiling
 
 Mesh = Tuple[torch.device, ...]
@@ -82,9 +81,11 @@ def encode_shards(
     (tile byte lengths, streams) in shard order from this process's own."""
     total = total or len(devices)
     dev0 = devices[0]
+    plan = tiling.encode_plan(headers, th, tw, True, shards=total)
     with on_device(dev0):
-        tiles, prior, k0, counts, cfg = tiling.encode_prepare(
-            images, headers, th, tw, True, dev0)
+        buf = upload_filled(plan.in_bytes(), dev0,
+                            lambda host: tiling.fill_images(host, plan, images))
+        tiles, k0, prior = tiling.encode_images(buf, plan)
         nt = tiles.shape[0]
         per = -(-nt // total)
         pad = per * total - nt
@@ -98,7 +99,7 @@ def encode_shards(
             pending.append(tiling.shard_dispatch(
                 tiles[lo : lo + per].to(dev, non_blocking=True),
                 prior[lo : lo + per].to(dev, non_blocking=True),
-                cfg, th, tw, *([k0] if i == 0 else [])))
+                plan, *([k0] if i == 0 else [])))
     done = [tiling.shard_finish(p) for p in pending]
     (k0_np,) = done[0][2]
     tile_bytes = np.concatenate([d[0] for d in done])
@@ -107,7 +108,8 @@ def encode_shards(
         tile_bytes, payload = gather(tile_bytes, payload)
     tile_bytes = tile_bytes[:nt]  # the padding tiles come last
     payload = payload[: int(tile_bytes.sum())]
-    return tiling.pack_containers(headers, counts, th, tw, tile_bytes, payload, k0_np)
+    return tiling.pack_containers(headers, tiling.tile_counts(th, tw, plan.dims), th, tw,
+                                  tile_bytes, payload, k0_np)
 
 
 def encode_groups(
@@ -170,10 +172,8 @@ def decode_shards(
     if hd.height == 0 or hd.width == 0:
         return tiling.empty_image(hd)
     payload = tiling.payload_of(data, hd)
-    cfg = tiled_config_for_depth(hd.pixel_depth)
-    c, n, lens = hd.num_channels, hd.n_tiles, hd.tile_lengths
-    prior = flct.prior_from_k0(hd.k0, cfg, c)
-    wd = tiling.row_width(lens)
+    n, lens = hd.n_tiles, hd.tile_lengths
+    plan = tiling.decode_plan([hd], lens)
     starts = np.concatenate([[0], np.cumsum(lens)])
     per = -(-n // total)
     planes = []
@@ -183,17 +183,18 @@ def decode_shards(
         pad = per - (hi - lo)  # padding slots repeat tile 0
         shard_lens = np.concatenate([lens[lo:hi], np.repeat(lens[:1], pad)])
         shard_pay = payload[starts[lo] : starts[hi]] + payload[: int(lens[0])] * pad
+        shard = tiling.decode_plan([hd], shard_lens)._replace(wd=plan.wd)  # the image's rows
         with on_device(dev):
-            rows, (prior_t,) = tiling.upload_rows(shard_lens, [shard_pay], wd, [prior], dev)
-            planes.append(tile_codec.decode_tiles(
-                rows, cfg, hd.tile_h, hd.tile_w, c, prior_t))
+            buf = upload_filled(shard.in_bytes(), dev, lambda host: tiling.fill_containers(
+                host, shard, [hd], shard_lens, [shard_pay]))
+            planes.append(tiling.decode_planes(buf, shard))
     dev0 = devices[0]
     with on_device(dev0):
         if gather is not None:
             bufs = gather([narrow_planes(p, hd) for p in planes]).to(torch.int32)
         else:
             bufs = torch.cat([p.to(dev0, non_blocking=True) for p in planes])
-        (img,), ok = tiling.decode_finish(tiling.assemble_dispatch([hd], bufs[:n]))
+        (img,), ok = tiling.decode_finish(HostCopy(*tiling.assembled(plan, bufs[:n])))
     if not ok[0]:
         raise errors.InvalidValue("decoded value does not fit the pixel depth")
     return img

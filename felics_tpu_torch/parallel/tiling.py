@@ -1,45 +1,32 @@
 """FLCT tiled container on one device, both directions.
 
 Counterpart: felics_tpu/parallel/tiling.py (``compress_tiled_bytes``,
-``decompress_tiled_bytes``, the dispatch/finish halves of its device
-chains, ``encode_container_dispatch``/``encode_container_finish`` and
-``decode_container_dispatch``/``decode_container_finish``, and its
-single-dispatch same-shape chains ``encode_images_dispatch`` /
+``decompress_tiled_bytes``, the dispatch/finish halves of its device chains
+and its single-dispatch same-shape chains ``encode_images_dispatch`` /
 ``decode_images_dispatch``).
 
-Each direction is a dispatch half, which enqueues the whole device chain and
-never waits on the device, and a finish half, which waits on the chain's
-event and works on the host. Encode dispatch: one staged upload of a
-group's images, edge-pad, YCoCg and cut tiles on the device; one exact
-k0/prior pass (``k0_prior``: kernel K5 on CUDA, its plain version on the
-CPU); the encode kernel at the width hint; exact-byte
-compaction (the tiles' byte streams back to back) into a buffer of hinted
-capacity; one copy to pinned host memory. Encode finish: relaunch at the
-exact width if a stream outgrew the hint, redo the compaction at the exact
-size if it outgrew the capacity, then take the payload as one slice of the
-pinned buffer and pack the containers. Decode dispatch: one
-staged upload of the payload, length table, priors and tile owners; (n,
-wd) word rows; the decode kernel; crop, inverse YCoCg and a range check on
-the device (one pass over a same-shape batch); one copy to pinned host
-memory. Decode finish: wait, and hand back the images with a validity flag
-each. ``*_group`` runs the two halves back to back; the batched and
-streamed calls in ``batch.py`` interleave them. Container bytes do not
-depend on the hints.
+A geometry group's dispatch plans it once (``encode_plan`` /
+``decode_plan``: shapes and hints, the reference's jit key), fills one
+uint8 input with its bytes (``fill_images`` / ``fill_containers``) and
+enqueues the direction's one chain body on it without waiting. Encode
+(``encode_chain``): views of the images, edge-pad, YCoCg and tiles; one
+exact k0/prior pass (``k0_prior``: K5 on CUDA, its plain version on the
+CPU); K1 at the width hint; exact-byte compaction into a buffer of hinted
+capacity. Decode (``decode_chain``): word rows of the payload, K2, crop,
+inverse YCoCg and a range check. The finish halves wait on the chain's
+event; encode's relaunches K1 at the exact width, or compacts again at the
+exact size, where a hint was short (bytes never depend on the hints) and
+packs the containers; decode's hands back the images and a validity flag
+each.
 
-``encode_dispatch`` / ``decode_dispatch`` are the eager chains. The entry
-points go through ``encode_group_dispatch`` / ``decode_group_dispatch``:
-on CUDA a same-shape group has a key (``encode_key`` / ``decode_key``,
-the reference's jit keys), runs the eager chain the first time the key is
-seen, and from the second time replays the key's CUDA graph of the same
-chain (``graphs.py``), fed from and copied back into static pinned
-buffers; other groups, and the CPU, run the eager chain.
-
-The halves are built from pieces the sharded paths (``mesh.py``,
-``multihost.py``) run on slices of tiles: ``encode_prepare`` (upload,
-tiles, k0/prior), ``shard_dispatch`` / ``shard_finish`` (from tiles and
-prior on a device to the tiles' byte streams, relaunch and recompaction
-included), ``pack_containers``; ``upload_rows`` (payload to word rows on
-a device) and ``assemble_dispatch`` (planes to images and flags).
+The body runs eagerly (``encode_dispatch`` / ``decode_dispatch``: the input
+staged and uploaded, the results copied back in one ``HostCopy``) or in a
+CUDA graph: through ``encode_group_dispatch`` / ``decode_group_dispatch`` a
+same-shape group on CUDA has its plan for key, runs eagerly at the key's
+first sighting and replays the key's graph of the same body after
+(``graphs.py``). The sharded paths (``mesh.py``, ``multihost.py``) run the
+bodies' halves on slices of tiles: ``encode_images`` then ``shard_dispatch``
+/ ``shard_finish``; ``decode_planes`` then ``assembled``.
 
 Every function takes ``device``; nothing falls back to another engine or to
 the CPU. The k0 sums are int64 at both depths, so the reference's 16-bit
@@ -50,7 +37,7 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import List, Optional, Sequence, Tuple
+from typing import Callable, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -60,8 +47,7 @@ from felics_tpu_torch.config import CodingConfig, TileConfig, tiled_config_for_d
 from felics_tpu_torch.core.color import rgb_to_ycocg, ycocg_to_rgb
 from felics_tpu_torch.core.context import neighbour_indices
 from felics_tpu_torch.device import (
-    HostCopy, as_pixels, on_device, resolve_device, stage,
-    staged_views, upload,
+    HostCopy, as_pixels, on_device, resolve_device, upload, upload_filled,
 )
 from felics_tpu_torch.format import ColorType, Header, PixelDepth, header_for_array
 from felics_tpu_torch.ops import _build, tile_codec
@@ -76,6 +62,52 @@ EAGER = {"encode": 0, "decode": 0}
 REDOS = {"width": 0, "capacity": 0}
 # The span of each redo's host bookkeeping, by its REDOS key.
 REDO_SPANS = {kind: f"felics.finish.redo.{kind}" for kind in REDOS}
+
+# ---------------------------------------------------------------------------
+# Plans: what both directions share
+# ---------------------------------------------------------------------------
+
+
+def same_shape(dims: Sequence[Tuple[int, int]]) -> bool:
+    return dims.count(dims[0]) == len(dims)
+
+
+def tile_counts(th: int, tw: int, dims: Sequence[Tuple[int, int]]) -> List[int]:
+    """The tiles of each (height, width) image at th x tw tiles, in order."""
+    grid = TileConfig(th, tw).grid
+    if same_shape(dims):
+        return [math.prod(grid(*dims[0]))] * len(dims)
+    return [math.prod(grid(h, w)) for h, w in dims]
+
+
+def keyed(plan, device: torch.device) -> bool:
+    """A same-shape group on CUDA: its plan keys a graph."""
+    return device.type == "cuda" and same_shape(plan.dims)
+
+
+def run_chain(plan, device: torch.device, fill: Callable, chain: Callable, graph: bool):
+    """Enqueue ``chain(input, plan)``, ``fill(host)`` writing its input into
+    a uint8 host array: with ``graph``, a ``keyed`` plan's graph of it from
+    ``device``'s cache, its static input filled, replayed; else (counted in
+    ``EAGER`` with ``graph``) the input staged and uploaded, the chain run
+    eagerly and one ``HostCopy`` of its results. Returns (the lease or the
+    HostCopy, the chain's kept tensors). Never waits on the device."""
+    lease = None
+    if graph and keyed(plan, device):
+        lease = graphs.cache(device).acquire(plan, lambda: graphs.capture(
+            plan, device, plan.in_bytes(), lambda buf: chain(buf, plan)))
+    if lease is None:
+        if graph:
+            EAGER[plan.direction] += 1
+        copied, kept = chain(upload_filled(plan.in_bytes(), device, fill), plan)
+        return HostCopy(*copied), kept
+    host = lease.graph.host_in.numpy()
+    with span("felics.stage.fill"):
+        fill(host)
+    with on_device(device):
+        lease.graph.replay()
+    return lease, lease.graph.outputs
+
 
 # ---------------------------------------------------------------------------
 # Encode
@@ -248,99 +280,147 @@ def byte_payload(words: torch.Tensor, bits: torch.Tensor, cap: int):
     return torch.where(j < ends[-1], b, 0).to(torch.uint8), ends[-1:]
 
 
-def tile_priors(tiles, counts, th, tw, cfg, k_prior: bool):
-    """(k0 (n_imgs, C, nb), prior): ``k0_prior``'s, or zeros (a (C, nb, K)
-    prior shared by every tile) without ``k_prior``."""
-    if k_prior:
-        return k0_prior(tiles, counts, th, tw, cfg)
-    c, dev = tiles.shape[1], tiles.device
-    nb, K = tile_codec.num_buckets(cfg), cfg.num_k
-    return (torch.zeros((len(counts), c, nb), dtype=torch.int32, device=dev),
-            torch.zeros((c, nb, K), dtype=torch.int32, device=dev))
+class EncodePlan(NamedTuple):
+    """A geometry group's encode, planned once a call (``encode_plan``): the
+    key of its graph, and the shapes and hints its chain and finish read."""
+
+    direction: str  # "encode", the counters' key (graphs.REPLAYS)
+    tile_h: int
+    tile_w: int
+    num_channels: int
+    pixel_depth: PixelDepth
+    dims: Tuple[Tuple[int, int], ...]  # (height, width) of each image
+    W: int  # width hint, words of a tile's stream
+    cap: int  # capacity hint, words of the compacted payload
+    k_prior: bool
+
+    @property
+    def cfg(self) -> CodingConfig:
+        return tiled_config_for_depth(self.pixel_depth)
+
+    def in_bytes(self) -> int:  # the images back to back
+        px = sum(h * w for h, w in self.dims) * self.num_channels
+        return px * (1 if self.pixel_depth == PixelDepth.EIGHT else 2)
 
 
-def encode_prepare(
-    images: Sequence[np.ndarray], headers: Sequence[Header], th: int, tw: int,
-    k_prior: bool, device: torch.device,
-):
-    """The encode chain up to the kernel, for same-geometry images (same
-    tile dims, channel count and depth), enqueued on ``device``'s current
-    stream: one staged upload, the tiles, and one k0 pass. Returns (tiles
-    (nt, C, t), prior (nt, C, nb, K) per tile, or (C, nb, K) zeros without
-    ``k_prior``, k0 (n_imgs, C, nb), each image's tile count, cfg). Never
-    waits on the device."""
-    cfg = tiled_config_for_depth(headers[0].pixel_depth)
-    views = upload(images, device)
-    if all(im.shape == images[0].shape for im in images):
-        tiles = image_tiles(as_pixels(torch.stack(views)), th, tw)
-    else:
-        tiles = torch.cat([image_tiles(as_pixels(v)[None], th, tw) for v in views])
-    tc = TileConfig(th, tw)
-    counts = [math.prod(tc.grid(hd.height, hd.width)) for hd in headers]
-    k0, prior = tile_priors(tiles, counts, th, tw, cfg, k_prior)
-    return tiles, prior, k0, counts, cfg
+def encode_plan(
+    headers: Sequence[Header], th: int, tw: int, k_prior: bool, shards: int = 1,
+) -> EncodePlan:
+    """The plan of a geometry group's encode (same tile dims, channels and
+    depth): the one read of the width hint, and of the capacity hint for
+    the tiles one of ``shards`` equal shards holds."""
+    h0 = headers[0]
+    cfg = tiled_config_for_depth(h0.pixel_depth)
+    c, t = h0.num_channels, th * tw
+    dims = tuple((hd.height, hd.width) for hd in headers)
+    nt = -(-sum(tile_counts(th, tw, dims)) // shards)
+    return EncodePlan("encode", th, tw, c, h0.pixel_depth, dims,
+                      tile_codec.width_hint(cfg, t, c), payload_cap_hint(cfg, nt, t, c),
+                      k_prior)
+
+
+def fill_images(host: np.ndarray, plan: EncodePlan, images: Sequence[np.ndarray]) -> None:
+    """The encode input's layout, written into a uint8 host array: the
+    images back to back, in either RGB memory layout (one ``np.stack`` for
+    a same-shape group)."""
+    if same_shape(plan.dims):
+        im0 = images[0]
+        np.stack(images, out=host.view(im0.dtype).reshape((len(images),) + im0.shape))
+        return
+    off = 0
+    for im in images:
+        host[off : off + im.nbytes].view(im.dtype).reshape(im.shape)[...] = im
+        off += im.nbytes
+
+
+def image_views(buf: torch.Tensor, plan: EncodePlan) -> List[torch.Tensor]:
+    """The images ``fill_images`` wrote into ``buf``, as views of it
+    (uint16 as int16 bit patterns): one (n, H, W[, 3]) batch for a
+    same-shape group, else one (1, H, W[, 3]) batch an image."""
+    px = buf.view(torch.uint8 if plan.pixel_depth == PixelDepth.EIGHT else torch.int16)
+    c = plan.num_channels
+    chans = (3,) if c == 3 else ()
+    if same_shape(plan.dims):
+        return [px.reshape((len(plan.dims),) + plan.dims[0] + chans)]
+    out, off = [], 0
+    for h, w in plan.dims:
+        out.append(px[off : off + h * w * c].reshape((1, h, w) + chans))
+        off += h * w * c
+    return out
+
+
+def encode_images(buf: torch.Tensor, plan: EncodePlan):
+    """The encode chain's first half, on ``buf``'s device: the images'
+    tiles (N*ty*tx, C, t), k0 (n_imgs, C, nb) and the per-tile prior of
+    ``k0_prior``; without ``k_prior``, zeros and one (C, nb, K) prior."""
+    th, tw, cfg = plan.tile_h, plan.tile_w, plan.cfg
+    parts = [image_tiles(as_pixels(v), th, tw) for v in image_views(buf, plan)]
+    tiles = parts[0] if len(parts) == 1 else torch.cat(parts)
+    if plan.k_prior:
+        return (tiles, *k0_prior(tiles, tile_counts(th, tw, plan.dims), th, tw, cfg))
+    c, nb, dev = plan.num_channels, tile_codec.num_buckets(cfg), tiles.device
+    return (tiles, torch.zeros((len(plan.dims), c, nb), dtype=torch.int32, device=dev),
+            torch.zeros((c, nb, cfg.num_k), dtype=torch.int32, device=dev))
+
+
+def encode_payload(tiles: torch.Tensor, prior: torch.Tensor, plan: EncodePlan):
+    """The encode chain's second half: one encode launch at the plan's
+    width, the exact-byte compaction into its capacity. Returns ([bit
+    counts, used byte count, payload bytes], the tensors finish keeps)."""
+    words, bits = tile_codec.encode_tiles(tiles, plan.cfg, plan.tile_h, plan.tile_w,
+                                          plan.W, prior)
+    pay, total = byte_payload(words, bits, plan.cap)
+    return [bits, total, pay], {"tiles": tiles, "prior": prior, "words": words,
+                                "bits": bits}
+
+
+def encode_chain(buf: torch.Tensor, plan: EncodePlan):
+    """A group's encode chain from its input bytes, eager or captured:
+    ([bit counts, used byte count, payload bytes, k0], the tensors finish
+    keeps)."""
+    tiles, k0, prior = encode_images(buf, plan)
+    copied, kept = encode_payload(tiles, prior, plan)
+    return copied + [k0], kept
 
 
 @dataclass
-class ShardPending:
-    """The encode chain of a set of tiles in flight, from the kernel to the
-    copy to the host: what finish needs to wait on it and redo its width or
-    compaction. After finish, ``W``, ``words`` and ``bits`` are those the
-    payload was compacted from (the relaunch's when there was one)."""
+class EncodePending:
+    """An encode chain in flight: what finish needs to wait on it, redo its
+    width or compaction and pack a group's containers. After finish, ``W``,
+    ``words`` and ``bits`` are those the payload was compacted from (the
+    relaunch's when there was one)."""
 
-    cfg: CodingConfig
-    th: int
-    tw: int
+    plan: EncodePlan
+    W: int
     tiles: torch.Tensor
     prior: torch.Tensor
-    W: int
     words: torch.Tensor
     bits: torch.Tensor
-    cap: int
-    # bits, used byte count, payload bytes, then the extras: a HostCopy, or
-    # the lease of a graph replay
+    # bits, used byte count, payload bytes, then the extras (a group's k0):
+    # a HostCopy, or the lease of a graph replay
     result: HostCopy
-
-
-@dataclass
-class EncodePending(ShardPending):
-    """A group's encode chain in flight: its one shard (every tile of the
-    group; its one extra is k0) and what finish needs to pack the
-    containers."""
-
-    headers: List[Header]
-    counts: List[int]
-    k_prior: bool
+    headers: Sequence[Header] = ()
 
 
 def shard_dispatch(
-    tiles: torch.Tensor, prior: torch.Tensor, cfg: CodingConfig, th: int, tw: int,
-    *extra: torch.Tensor,
-) -> ShardPending:
-    """Enqueue the encode chain of tiles and their prior on their device's
-    current stream: one encode launch at the width hint, the exact-byte
-    compaction into a buffer of hinted capacity and one copy to the host of
-    the bit counts, the used byte count, the payload and ``extra`` (tensors
-    on the same device). Never waits on the device. The step every shard of a
-    sharded encode runs."""
-    nt, c, t = tiles.shape
-    W = tile_codec.width_hint(cfg, t, c)
-    words, bits = tile_codec.encode_tiles(tiles, cfg, th, tw, W, prior)
-    cap = payload_cap_hint(cfg, nt, t, c)
-    pay, total = byte_payload(words, bits, cap)
-    return ShardPending(
-        cfg, th, tw, tiles, prior, W, words, bits, cap,
-        HostCopy(bits, total, pay, *extra),
-    )
+    tiles: torch.Tensor, prior: torch.Tensor, plan: EncodePlan, *extra: torch.Tensor,
+) -> EncodePending:
+    """``encode_payload`` on tiles and their prior, then one copy to the
+    host of its results and ``extra`` (tensors on the same device), on
+    their device's current stream: what every shard of a sharded encode
+    runs. Never waits on the device."""
+    copied, kept = encode_payload(tiles, prior, plan)
+    return EncodePending(plan, plan.W, result=HostCopy(*copied, *extra), **kept)
 
 
-def shard_finish(p: ShardPending) -> Tuple[np.ndarray, bytes, List[np.ndarray]]:
+def shard_finish(p: EncodePending) -> Tuple[np.ndarray, bytes, List[np.ndarray]]:
     """Wait on a dispatched shard: (each tile's byte length, int64; the
     tiles' byte streams, concatenated; the extras as numpy arrays). A
     stream longer than the width hint is encoded again at its exact width,
     and a payload larger than the capacity compacted again at its exact
     size, both synchronously on the shard's device. Releases the result's
     buffers."""
+    plan = p.plan
     try:
         bits_np, total_np, pay_np, *extra = p.result.wait()
         nt, c, t = p.tiles.shape
@@ -354,16 +434,16 @@ def shard_finish(p: ShardPending) -> Tuple[np.ndarray, bytes, List[np.ndarray]]:
                     REDOS["width"] += 1
                     p.W = exact_width(max_bits)
                 p.words, p.bits = tile_codec.encode_tiles(
-                    p.tiles, p.cfg, p.th, p.tw, p.W, p.prior)
-            elif int(total_np[0]) > 4 * p.cap:
+                    p.tiles, plan.cfg, plan.tile_h, plan.tile_w, p.W, p.prior)
+            elif int(total_np[0]) > 4 * plan.cap:
                 with span(REDO_SPANS["capacity"]):
                     REDOS["capacity"] += 1
                 redo = True
             if redo:
                 exact = byte_payload(p.words, p.bits, -(-total // 4))[0]
                 (pay_np,) = HostCopy(exact).wait()
-        tile_codec.observe_width(p.cfg, t, c, max_bits)
-        observe_payload(p.cfg, t, c, int(((bits_np + 31) // 32).sum()), nt)
+        tile_codec.observe_width(plan.cfg, t, c, max_bits)
+        observe_payload(plan.cfg, t, c, int(((bits_np + 31) // 32).sum()), nt)
         with span("felics.finish.strip"):
             payload = pay_np[:total].tobytes()
         return tile_bytes, payload, [e.copy() for e in extra]
@@ -371,17 +451,21 @@ def shard_finish(p: ShardPending) -> Tuple[np.ndarray, bytes, List[np.ndarray]]:
         p.result.release()
 
 
+def _encode(images, headers, th, tw, k_prior, device, graph: bool) -> EncodePending:
+    with span("felics.stage.key"):
+        plan = encode_plan(headers, th, tw, k_prior)
+    result, kept = run_chain(plan, device, lambda host: fill_images(host, plan, images),
+                             encode_chain, graph)
+    return EncodePending(plan, plan.W, result=result, headers=headers, **kept)
+
+
 def encode_dispatch(
     images: Sequence[np.ndarray], headers: Sequence[Header], th: int, tw: int,
     k_prior: bool, device: torch.device,
 ) -> EncodePending:
-    """Enqueue the encode chain of same-geometry images on the current
-    stream: ``encode_prepare``, then ``shard_dispatch`` over all the tiles.
-    Never waits on the device."""
-    tiles, prior, k0, counts, cfg = encode_prepare(images, headers, th, tw, k_prior, device)
-    shard = shard_dispatch(tiles, prior, cfg, th, tw, k0)
-    return EncodePending(**vars(shard), headers=list(headers), counts=counts,
-                         k_prior=k_prior)
+    """Enqueue the encode chain of same-geometry images eagerly on the
+    current stream. Never waits on the device."""
+    return _encode(images, headers, th, tw, k_prior, device, False)
 
 
 def pack_containers(
@@ -406,87 +490,22 @@ def encode_finish(p: EncodePending) -> List[bytes]:
     """Wait on a dispatched encode (``shard_finish``) and pack its
     containers."""
     tile_bytes, payload, (k0_np,) = shard_finish(p)
-    return pack_containers(p.headers, p.counts, p.th, p.tw, tile_bytes, payload,
-                           k0_np if p.k_prior else None)
-
-
-def encode_key(
-    images: Sequence[np.ndarray], headers: Sequence[Header], th: int, tw: int,
-    k_prior: bool, device: torch.device,
-) -> Optional[tuple]:
-    """The graph key of a geometry group's encode, as the reference keys
-    its jitted chain: (direction, tile dims, channels, depth, images, image
-    dims, width hint, capacity hint, k_prior); None for a group that runs
-    eagerly (mixed shapes, or not on CUDA)."""
-    if device.type != "cuda" or any(im.shape != images[0].shape for im in images):
-        return None
-    h0 = headers[0]
-    cfg = tiled_config_for_depth(h0.pixel_depth)
-    c, t = h0.num_channels, th * tw
-    nt = len(images) * math.prod(TileConfig(th, tw).grid(h0.height, h0.width))
-    return ("encode", th, tw, c, h0.pixel_depth, len(images), h0.height, h0.width,
-            tile_codec.width_hint(cfg, t, c), payload_cap_hint(cfg, nt, t, c), k_prior)
+    plan = p.plan
+    return pack_containers(
+        p.headers, tile_counts(plan.tile_h, plan.tile_w, plan.dims), plan.tile_h,
+        plan.tile_w, tile_bytes, payload, k0_np if plan.k_prior else None)
 
 
 def encode_group_dispatch(
     images: Sequence[np.ndarray], headers: Sequence[Header], th: int, tw: int,
     k_prior: bool, device: torch.device,
 ) -> EncodePending:
-    """A geometry group's encode chain, enqueued: a group with a key
-    (``encode_key``) goes through the graph cache, eager the first time
-    its key is seen, then one replay of the key's graph; any other group
-    through ``encode_dispatch``, the eager chain. A hint that moves makes
-    a new key. ``encode_finish`` finishes either. Never waits on the
-    device."""
-    with span("felics.stage.key"):
-        key = encode_key(images, headers, th, tw, k_prior, device)
-    lease = None if key is None else graphs.cache(device).acquire(
-        key, lambda: _capture_encode(key, device))
-    if lease is None:
-        EAGER["encode"] += 1
-        return encode_dispatch(images, headers, th, tw, k_prior, device)
-    _, _, _, _, depth, n, h, w, W, cap, _ = key
-    g = lease.graph
-    host = g.host_in.numpy().view(images[0].dtype).reshape((n,) + images[0].shape)
-    with span("felics.stage.fill"):
-        np.stack(images, out=host)
-    with on_device(device):
-        g.replay()
-    o = g.outputs
-    per = math.prod(TileConfig(th, tw).grid(h, w))
-    return EncodePending(tiled_config_for_depth(depth), th, tw, o["tiles"], o["prior"],
-                         W, o["words"], o["bits"], cap, lease, headers=list(headers),
-                         counts=[per] * n, k_prior=k_prior)
-
-
-def _capture_encode(key, device: torch.device) -> graphs.Graph:
-    """The graph of a same-shape encode key: from the images' bytes to the
-    copy ``encode_dispatch`` makes (bit counts, used byte count, payload,
-    k0), through the same ops."""
-    _, th, tw, c, depth, n, h, w, W, cap, k_prior = key
-    cfg = tiled_config_for_depth(depth)
-    narrow = torch.uint8 if depth == PixelDepth.EIGHT else torch.int16
-    shape = (n, h, w) + ((3,) if c == 3 else ())
-    per = math.prod(TileConfig(th, tw).grid(h, w))
-
-    def body(dev_in):
-        tiles = image_tiles(as_pixels(dev_in.view(narrow).reshape(shape)), th, tw)
-        k0, prior = tile_priors(tiles, [per] * n, th, tw, cfg, k_prior)
-        words, bits = tile_codec.encode_tiles(tiles, cfg, th, tw, W, prior)
-        pay, total = byte_payload(words, bits, cap)
-        return [bits, total, pay, k0], {"tiles": tiles, "prior": prior,
-                                        "words": words, "bits": bits}
-
-    in_bytes = n * h * w * c * (1 if depth == PixelDepth.EIGHT else 2)
-    return graphs.capture(key, device, in_bytes, body)
-
-
-def encode_group(
-    images: Sequence[np.ndarray], headers: Sequence[Header], th: int, tw: int,
-    k_prior: bool, device: torch.device,
-) -> List[bytes]:
-    """FLCT containers of same-geometry images: dispatch, then finish."""
-    return encode_finish(encode_group_dispatch(images, headers, th, tw, k_prior, device))
+    """A geometry group's encode chain, enqueued: a ``keyed`` group goes
+    through the graph cache, eager the first time its plan is seen, then
+    one replay of the plan's graph; any other group eagerly. A hint that
+    moves makes a new plan. ``encode_finish`` finishes either. Never waits
+    on the device."""
+    return _encode(images, headers, th, tw, k_prior, device, True)
 
 
 def compress_tiled_bytes(
@@ -501,7 +520,7 @@ def compress_tiled_bytes(
     if header.height == 0 or header.width == 0:
         return flct.empty_container(header, tile)
     th, tw = flct.clamped_tile_dims(header.height, header.width, tile)
-    return encode_group([image], [header], th, tw, k_prior, dev)[0]
+    return encode_finish(encode_group_dispatch([image], [header], th, tw, k_prior, dev))[0]
 
 
 # ---------------------------------------------------------------------------
@@ -533,21 +552,22 @@ def plane_bounds(hd: flct.TiledHeader) -> Tuple[int, int]:
     return (0 if hd.num_channels == 1 else -bound), bound
 
 
-def assemble_images(bufs: torch.Tensor, hd: flct.TiledHeader, n: int):
-    """(n * n_tiles, C, t) planes of n images of ``hd``'s shape, image after
-    image -> ((n, H, W[, 3]) int32 pixels, (n,) valid flags), in one pass
-    over the batch (the reference's vmapped _assemble_image_body). Raw plane
-    values outside the depth's plane bounds flag their image too, even where
-    they sit in tile padding, so a corrupt container is rejected the same
-    way whichever image it lands in."""
-    th, tw, c = hd.tile_h, hd.tile_w, hd.num_channels
-    ty, tx = TileConfig(th, tw).grid(hd.height, hd.width)
-    lo, bound = plane_bounds(hd)
+def assemble_images(bufs: torch.Tensor, plan: DecodePlan):
+    """(nt, C, t) planes of a same-shape plan's n images, image after image
+    -> ((n, H, W[, 3]) int32 pixels, (n,) valid flags), in one pass over the
+    batch (the reference's vmapped _assemble_image_body). Raw plane values
+    outside the depth's plane bounds flag their image too, even where they
+    sit in tile padding, so a corrupt container is rejected the same way
+    whichever image it lands in."""
+    th, tw, c = plan.tile_h, plan.tile_w, plan.num_channels
+    n, (h, w) = len(plan.dims), plan.dims[0]
+    ty, tx = TileConfig(th, tw).grid(h, w)
+    lo, bound = plane_bounds(plan)
     planes_ok = ((bufs >= lo) & (bufs <= bound)).reshape(n, -1).all(dim=1)
     planes = (
         bufs.reshape(n, ty, tx, c, th, tw)
         .permute(0, 3, 1, 4, 2, 5)
-        .reshape(n, c, ty * th, tx * tw)[:, :, : hd.height, : hd.width]
+        .reshape(n, c, ty * th, tx * tw)[:, :, :h, :w]
     )
     if c == 1:
         out = planes[:, 0]
@@ -556,15 +576,6 @@ def assemble_images(bufs: torch.Tensor, hd: flct.TiledHeader, n: int):
         out = torch.stack([r, g, b], dim=-1)
     valid = planes_ok & ((out >= 0) & (out <= bound)).reshape(n, -1).all(dim=1)
     return out, valid
-
-
-def assemble_image(
-    bufs: torch.Tensor, hd: flct.TiledHeader
-):
-    """(n_tiles, C, t) planes of one image -> ((H, W[, 3]) int32 pixels,
-    valid flag): ``assemble_images`` of a batch of one."""
-    out, valid = assemble_images(bufs, hd, 1)
-    return out[0], valid[0]
 
 
 def payload_of(data: bytes, hd: flct.TiledHeader) -> bytes:
@@ -589,52 +600,125 @@ def row_width(lens: np.ndarray) -> int:
     return tile_codec.bucket_words(int(-(-lens.max(initial=1) // 4)))
 
 
-def upload_rows(
-    lens: np.ndarray, payloads: Sequence[bytes], wd: int,
-    arrays: Sequence[np.ndarray], device: torch.device,
-) -> Tuple[torch.Tensor, List[torch.Tensor]]:
-    """Tile streams (``payloads`` back to back) and their byte lengths
-    (int64) -> ((n, wd) int32 word rows on ``device``, ``arrays`` as tensors
-    there): one staged upload, then ``word_rows``. Never waits on the
-    device."""
-    pays = [np.frombuffer(p, np.uint8) for p in payloads]
-    pays = pays if sum(p.size for p in pays) else [np.zeros(4, np.uint8)]
-    arrays = [lens] + list(arrays)
-    buf, offs = stage(arrays + pays, device)
-    views = staged_views(buf, offs, arrays)
-    # The uint8 payloads lie back to back after the arrays.
-    return word_rows(buf[offs[len(arrays)] :], views[0], wd), views[1:]
+class DecodePlan(NamedTuple):
+    """A geometry group's decode, planned once a call (``decode_plan``): the
+    key of its graph and its input's layout."""
+
+    direction: str  # "decode", the counters' key (graphs.REPLAYS)
+    tile_h: int
+    tile_w: int
+    num_channels: int
+    pixel_depth: PixelDepth
+    dims: Tuple[Tuple[int, int], ...]  # (height, width) of each image
+    nt: int  # tile streams, the length table's entries
+    wd: int  # words of a row
+    size: int  # payload bytes the input holds (``payload_bucket``)
+
+    @property
+    def cfg(self) -> CodingConfig:
+        return tiled_config_for_depth(self.pixel_depth)
+
+    def offsets(self) -> Tuple[int, int]:
+        """The decode input's layout: the (nt,) int64 length table at 0,
+        then the priors, (n, C, nb, K) int32, and the payload at these two
+        byte offsets."""
+        cfg = self.cfg
+        o1 = 8 * self.nt
+        return o1, o1 + 4 * len(self.dims) * self.num_channels * (
+            tile_codec.num_buckets(cfg) * cfg.num_k)
+
+    def in_bytes(self) -> int:
+        return self.offsets()[1] + self.size
 
 
-def assembled(
-    headers: Sequence[flct.TiledHeader], bufs: torch.Tensor
-) -> List[torch.Tensor]:
-    """Decoded planes of same-geometry containers, in tile order -> [the
-    validity flags, then each image narrowed (uint8, or uint16 bit patterns
-    as int16)], assembled, range-checked and cropped on the planes' device:
+def decode_plan(headers: Sequence[flct.TiledHeader], lens: np.ndarray) -> DecodePlan:
+    """The plan of a decode of same-geometry containers' tile streams of
+    ``lens`` bytes (int64)."""
+    h0 = headers[0]
+    return DecodePlan("decode", h0.tile_h, h0.tile_w, h0.num_channels, h0.pixel_depth,
+                      tuple((hd.height, hd.width) for hd in headers), len(lens),
+                      row_width(lens), payload_bucket(int(lens.sum())))
+
+
+def fill_containers(
+    host: np.ndarray, plan: DecodePlan, headers: Sequence[flct.TiledHeader],
+    lens: np.ndarray, payloads: Sequence[bytes],
+) -> None:
+    """The decode input's layout (``DecodePlan.offsets``), written into a
+    uint8 host array: the length table, each header's prior, the payloads
+    back to back."""
+    o1, o2 = plan.offsets()
+    cfg, c = plan.cfg, plan.num_channels
+    host[:o1].view(np.int64)[:] = lens
+    host[o1:o2].view(np.int32)[:] = np.stack(
+        [flct.prior_from_k0(hd.k0, cfg, c) for hd in headers]).reshape(-1)
+    for p in payloads:
+        host[o2 : o2 + len(p)] = np.frombuffer(p, np.uint8)
+        o2 += len(p)
+
+
+def container_views(buf: torch.Tensor, plan: DecodePlan):
+    """What ``fill_containers`` wrote into ``buf``, as views of it: (lens,
+    priors, payload bytes)."""
+    o1, o2 = plan.offsets()
+    cfg = plan.cfg
+    priors = buf[o1:o2].view(torch.int32).reshape(
+        len(plan.dims), plan.num_channels, tile_codec.num_buckets(cfg), cfg.num_k)
+    return buf[:o1].view(torch.int64), priors, buf[o2:]
+
+
+def decode_planes(buf: torch.Tensor, plan: DecodePlan) -> torch.Tensor:
+    """The decode chain's first half, on ``buf``'s device: word rows, each
+    tile's prior (the image's, expanded over a same-shape batch) and the
+    decode launch. Returns the (nt, C, t) planes."""
+    lens, priors, payload = container_views(buf, plan)
+    rows = word_rows(payload, lens, plan.wd)
+    n, nt = priors.shape[0], plan.nt
+    if n == 1:
+        prior = priors[0]
+    elif same_shape(plan.dims):
+        prior = priors.unsqueeze(1).expand(n, nt // n, *priors.shape[1:]).reshape(
+            nt, *priors.shape[1:])
+    else:
+        prior = priors[image_of_tile(tile_counts(plan.tile_h, plan.tile_w, plan.dims),
+                                     buf.device)]
+    return tile_codec.decode_tiles(rows, plan.cfg, plan.tile_h, plan.tile_w,
+                                   plan.num_channels, prior)
+
+
+def assembled(plan: DecodePlan, bufs: torch.Tensor) -> List[torch.Tensor]:
+    """Decoded planes of a plan's images, in tile order -> [the validity
+    flags, then each image narrowed (uint8, or uint16 bit patterns as
+    int16)], assembled, range-checked and cropped on the planes' device:
     one pass over a same-shape batch (``assemble_images``), image by image
     otherwise."""
-    h0 = headers[0]
-    maxv = (1 << h0.pixel_depth.bits) - 1
-    narrow = torch.uint8 if h0.pixel_depth == PixelDepth.EIGHT else torch.int16
-    if all((hd.height, hd.width) == (h0.height, h0.width) for hd in headers):
-        out, valid = assemble_images(bufs, h0, len(headers))
+    maxv = (1 << plan.pixel_depth.bits) - 1
+    narrow = torch.uint8 if plan.pixel_depth == PixelDepth.EIGHT else torch.int16
+    if same_shape(plan.dims):
+        out, valid = assemble_images(bufs, plan)
         return [valid, *out.clamp(0, maxv).to(narrow).unbind(0)]
     imgs, flags, t0 = [], [], 0
-    for hd in headers:
-        out, valid = assemble_image(bufs[t0 : t0 + hd.n_tiles], hd)
-        imgs.append(out.clamp(0, maxv).to(narrow))
-        flags.append(valid)
-        t0 += hd.n_tiles
+    for dims, n_t in zip(plan.dims, tile_counts(plan.tile_h, plan.tile_w, plan.dims)):
+        out, valid = assemble_images(bufs[t0 : t0 + n_t], plan._replace(dims=(dims,), nt=n_t))
+        imgs.append(out[0].clamp(0, maxv).to(narrow))
+        flags.append(valid[0])
+        t0 += n_t
     return [torch.stack(flags), *imgs]
 
 
-def assemble_dispatch(
-    headers: Sequence[flct.TiledHeader], bufs: torch.Tensor
-) -> HostCopy:
-    """One copy to the host of ``assembled(headers, bufs)``. Never waits
-    on the device."""
-    return HostCopy(*assembled(headers, bufs))
+def decode_chain(buf: torch.Tensor, plan: DecodePlan):
+    """A group's decode chain from its input bytes, eager or captured:
+    ([flags, then the images], nothing kept)."""
+    return assembled(plan, decode_planes(buf, plan)), {}
+
+
+def _decode(headers, payloads, device, graph: bool):
+    with span("felics.stage.key"):
+        lens = np.concatenate([hd.tile_lengths for hd in headers])
+        plan = decode_plan(headers, lens)
+    return run_chain(
+        plan, device, lambda host: fill_containers(host, plan, headers, lens, payloads),
+        decode_chain, graph)[0]
 
 
 def decode_dispatch(
@@ -642,73 +726,20 @@ def decode_dispatch(
     device: torch.device,
 ) -> HostCopy:
     """Enqueue the decode chain of same-geometry containers (same tile dims,
-    channel count and depth) on the current stream: one staged upload of
-    the payloads, length table, priors and tile owners (``upload_rows``),
-    one decode launch, then ``assemble_dispatch``. Never waits on the
-    device."""
-    h0 = headers[0]
-    cfg = tiled_config_for_depth(h0.pixel_depth)
-    lens = np.concatenate([hd.tile_lengths for hd in headers])
-    priors = np.stack([flct.prior_from_k0(hd.k0, cfg, h0.num_channels) for hd in headers])
-    owner = np.repeat(np.arange(len(headers)), [hd.n_tiles for hd in headers])
-    rows, (priors_t, owner_t) = upload_rows(
-        lens, payloads, row_width(lens), [priors, owner], device)
-    prior = priors_t[0] if len(headers) == 1 else priors_t[owner_t]
-    bufs = tile_codec.decode_tiles(
-        rows, cfg, h0.tile_h, h0.tile_w, h0.num_channels, prior)
-    return assemble_dispatch(headers, bufs)
-
-
-def decode_key(
-    headers: Sequence[flct.TiledHeader], device: torch.device
-) -> Optional[tuple]:
-    """The graph key of a geometry group's decode, as the reference keys
-    its jitted chain: (direction, tile dims, channels, depth, images, image
-    dims, row width, bucketed payload bytes); None for a group that runs
-    eagerly (mixed shapes, or not on CUDA)."""
-    h0 = headers[0]
-    if device.type != "cuda" or any(
-            (hd.height, hd.width) != (h0.height, h0.width) for hd in headers):
-        return None
-    lens = np.concatenate([hd.tile_lengths for hd in headers])
-    return ("decode", h0.tile_h, h0.tile_w, h0.num_channels, h0.pixel_depth,
-            len(headers), h0.height, h0.width, row_width(lens),
-            payload_bucket(int(lens.sum())))
+    channel count and depth) eagerly on the current stream. Never waits on
+    the device."""
+    return _decode(headers, payloads, device, False)
 
 
 def decode_group_dispatch(
     headers: Sequence[flct.TiledHeader], payloads: Sequence[bytes],
     device: torch.device,
 ):
-    """A geometry group's decode chain, enqueued: a group with a key
-    (``decode_key``) goes through the graph cache, eager the first time
-    its key is seen, then one replay of the key's graph; any other group
-    through ``decode_dispatch``, the eager chain. ``decode_finish``
-    finishes either. Never waits on the device."""
-    with span("felics.stage.key"):
-        key = decode_key(headers, device)
-    h0 = headers[0]
-    lease = None if key is None else graphs.cache(device).acquire(
-        key, lambda: _capture_decode(key, h0, device))
-    if lease is None:
-        EAGER["decode"] += 1
-        return decode_dispatch(headers, payloads, device)
-    host = lease.graph.host_in.numpy()
-    with span("felics.stage.fill"):
-        cfg = tiled_config_for_depth(h0.pixel_depth)
-        lens = np.concatenate([hd.tile_lengths for hd in headers]).astype(np.int64)
-        priors = np.stack([flct.prior_from_k0(hd.k0, cfg, h0.num_channels)
-                           for hd in headers])
-        o1 = lens.nbytes
-        o2 = o1 + priors.nbytes
-        host[:o1].view(np.int64)[:] = lens
-        host[o1:o2].view(np.int32)[:] = priors.reshape(-1)
-        for p in payloads:
-            host[o2 : o2 + len(p)] = np.frombuffer(p, np.uint8)
-            o2 += len(p)
-    with on_device(device):
-        lease.graph.replay()
-    return lease
+    """A geometry group's decode chain, enqueued: a ``keyed`` group goes
+    through the graph cache, eager the first time its plan is seen, then
+    one replay of the plan's graph; any other group eagerly.
+    ``decode_finish`` finishes either. Never waits on the device."""
+    return _decode(headers, payloads, device, True)
 
 
 def payload_bucket(nbytes: int) -> int:
@@ -717,29 +748,6 @@ def payload_bucket(nbytes: int) -> int:
     n = max(1 << 12, int(nbytes))
     gran = 1 << max(10, n.bit_length() - 3)
     return -(-n // gran) * gran
-
-
-def _capture_decode(key, hd: flct.TiledHeader, device: torch.device) -> graphs.Graph:
-    """The graph of a same-shape decode key: from the tile lengths, priors
-    and bucketed payload to the copy ``decode_dispatch`` makes (flags, then
-    the images), through the same ops."""
-    _, th, tw, c, depth, n, _, _, wd, size = key
-    cfg = tiled_config_for_depth(depth)
-    nb, K = tile_codec.num_buckets(cfg), cfg.num_k
-    nt = n * hd.n_tiles
-    o1 = 8 * nt
-    o2 = o1 + 4 * n * c * nb * K
-
-    def body(dev_in):
-        lens = dev_in[:o1].view(torch.int64)
-        priors = dev_in[o1:o2].view(torch.int32).reshape(n, c, nb, K)
-        rows = word_rows(dev_in[o2:], lens, wd)
-        prior = priors[0] if n == 1 else (
-            priors.unsqueeze(1).expand(n, hd.n_tiles, c, nb, K).reshape(nt, c, nb, K))
-        bufs = tile_codec.decode_tiles(rows, cfg, th, tw, c, prior)
-        return assembled([hd] * n, bufs), {}
-
-    return graphs.capture(key, device, o2 + size, body)
 
 
 def decode_finish(p) -> Tuple[List[np.ndarray], np.ndarray]:
@@ -758,22 +766,13 @@ def decode_finish(p) -> Tuple[List[np.ndarray], np.ndarray]:
         p.release()
 
 
-def decode_group(
-    headers: Sequence[flct.TiledHeader], payloads: Sequence[bytes],
-    device: torch.device,
-) -> Tuple[List[np.ndarray], np.ndarray]:
-    """Images of same-geometry containers and their validity flags:
-    dispatch, then finish."""
-    return decode_finish(decode_group_dispatch(headers, payloads, device))
-
-
 def decompress_tiled_bytes(data: bytes, device="cuda") -> np.ndarray:
     """FLCT container bytes (v0 or v2) -> (H, W[, 3]) uint8/uint16 image."""
     dev = resolve_device(device)
     hd = flct.read_tiled_header(data)
     if hd.height == 0 or hd.width == 0:
         return empty_image(hd)
-    (img,), ok = decode_group([hd], [payload_of(data, hd)], dev)
+    (img,), ok = decode_finish(decode_group_dispatch([hd], [payload_of(data, hd)], dev))
     if not ok[0]:
         raise errors.InvalidValue("decoded value does not fit the pixel depth")
     return img

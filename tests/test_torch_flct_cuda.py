@@ -352,8 +352,8 @@ def test_plain_versions_on_edge_rows(h, cls):
     p = _edge_pending(images, CPU)
     nt, c, _ = p.tiles.shape
     assert nt == sum(-(-h // 2) * -(-im.shape[1] // 2) for im in images)
-    assert torch.equal(tcd.decode_tiles_ref(p.words, p.cfg, 2, 2, c, p.prior), p.tiles)
-    _oracle_planes(p.words, p.bits, p.tiles, p.prior, p.cfg, 2, 2)
+    assert torch.equal(tcd.decode_tiles_ref(p.words, p.plan.cfg, 2, 2, c, p.prior), p.tiles)
+    _oracle_planes(p.words, p.bits, p.tiles, p.prior, p.plan.cfg, 2, 2)
 
 
 @pytest.mark.cuda
@@ -379,12 +379,12 @@ def test_cuda_kernels_on_edge_rows(cuda, h, cls):
         return
     p = _edge_pending(images, cuda)
     nt, c, _ = p.tiles.shape
-    wk, bk = tcd.encode_tiles(p.tiles, p.cfg, 2, 2, p.W, p.prior)
-    wr, br = tcd.encode_tiles_ref(p.tiles, p.cfg, 2, 2, p.W, p.prior)
+    wk, bk = tcd.encode_tiles(p.tiles, p.plan.cfg, 2, 2, p.W, p.prior)
+    wr, br = tcd.encode_tiles_ref(p.tiles, p.plan.cfg, 2, 2, p.W, p.prior)
     assert torch.equal(wk, wr) and torch.equal(bk, br)
     assert torch.equal(wk, p.words) and torch.equal(bk, p.bits)
-    dk = tcd.decode_tiles(wk, p.cfg, 2, 2, c, p.prior)
-    assert torch.equal(dk, tcd.decode_tiles_ref(wk, p.cfg, 2, 2, c, p.prior))
+    dk = tcd.decode_tiles(wk, p.plan.cfg, 2, 2, c, p.prior)
+    assert torch.equal(dk, tcd.decode_tiles_ref(wk, p.plan.cfg, 2, 2, c, p.prior))
     assert torch.equal(dk, p.tiles)
 
 
@@ -470,7 +470,7 @@ def test_cuda_graph_replay_equals_eager_chain_and_native(cuda, native_codec, cls
     for out in _until_replayed(lambda: tiling.decompress_tiled_bytes(eager[0], device=cuda),
                                "decode"):
         assert np.array_equal(out, images[0])
-    assert all(g.key[0] in ("encode", "decode") for g in graphs.cache(cuda).graphs)
+    assert all(g.key.direction in ("encode", "decode") for g in graphs.cache(cuda).graphs)
 
 
 @pytest.mark.cuda
@@ -492,7 +492,7 @@ def test_cuda_graph_slots_with_one_key_keep_their_own_data(cuda, native_codec):
             assert all(np.array_equal(x, y) for x, y in zip(b, o))
     for direction in ("encode", "decode"):
         keys = [g.key for g in graphs.cache(cuda).graphs
-                if g.key[0] == direction and g.key[5:8] == (2, 40, 24)]
+                if g.key.direction == direction and g.key.dims == ((40, 24),) * 2]
         assert max(keys.count(k) for k in keys) >= 2, direction
 
 
@@ -610,7 +610,8 @@ def test_cuda_graph_capacity_redo_equals_eager_and_cpu(cuda, monkeypatch, cls):
                                "encode")
     assert all(blobs == want for blobs in replayed)
     assert tiling.REDOS["capacity"] == redos + 1 + len(replayed)
-    assert any(g.key[0] == "encode" and g.key[9] == 1 for g in graphs.cache(cuda).graphs)
+    assert any(g.key.direction == "encode" and g.key.cap == 1
+               for g in graphs.cache(cuda).graphs)
 
 
 @pytest.mark.cuda

@@ -95,25 +95,28 @@ def test_sharded_rgb16_both_ways(rng):
 
 
 def test_sharded_decode_rows_are_sharded(rng, monkeypatch):
-    """Each device gets only its own tiles' word rows (and, past the last
-    tile, padding copies of tile 0), not the whole payload."""
+    """Each device gets only its own tiles' streams (and, past the last
+    tile, padding copies of tile 0), not the whole payload, in the
+    one-device decode input's layout, rows as wide as the image's."""
     img = smooth_image(rng, 40, 32)  # 20 tiles of 8x8 over 8 devices: 3 each
     data = compress_tiled_bytes(img, TILE8, device="cpu")
     lens = ref_tiling.read_tiled_header(data).tile_lengths
     seen = []
-    real = tiling.upload_rows
+    real = tiling.fill_containers
 
-    def spy(shard_lens, payloads, wd, arrays, device):
-        seen.append((shard_lens.copy(), sum(len(p) for p in payloads)))
-        return real(shard_lens, payloads, wd, arrays, device)
+    def spy(host, plan, headers, shard_lens, payloads):
+        seen.append((shard_lens.copy(), sum(len(p) for p in payloads), plan, host.size))
+        return real(host, plan, headers, shard_lens, payloads)
 
-    monkeypatch.setattr(tiling, "upload_rows", spy)
+    monkeypatch.setattr(tiling, "fill_containers", spy)
     np.testing.assert_array_equal(mesh.decode_tiled_sharded(data, MESH), img)
     assert len(seen) == 8
     padded = np.concatenate([lens, np.repeat(lens[:1], 4)])
-    for i, (shard_lens, n_bytes) in enumerate(seen):
+    for i, (shard_lens, n_bytes, plan, size) in enumerate(seen):
         assert np.array_equal(shard_lens, padded[3 * i : 3 * i + 3])
         assert n_bytes == int(shard_lens.sum())
+        assert plan.nt == 3 and plan.wd == tiling.row_width(lens)
+        assert size == plan.in_bytes()
 
 
 def test_corpus_encode_sharded_matches_batch(rng):
@@ -226,11 +229,12 @@ def test_narrowed_planes_keep_the_range_check(rng, channels, dtype):
     planes = tiling.image_tiles(torch.from_numpy(img.astype(np.int32))[None], 8, 8)
     narrow = mesh.narrow_planes(planes, hd)
     assert narrow.dtype == (torch.int16 if dtype == np.uint8 else torch.int32)
-    out, ok = tiling.assemble_image(narrow.to(torch.int32), hd)
-    assert bool(ok) and np.array_equal(out.numpy(), img)
+    plan = tiling.decode_plan([hd], hd.tile_lengths)
+    out, ok = tiling.assemble_images(narrow.to(torch.int32), plan)
+    assert bool(ok[0]) and np.array_equal(out[0].numpy(), img)
     lo, hi = tiling.plane_bounds(hd)
     for bad in (lo - 1, hi + 1, lo - 100000, hi + 100000):
         corrupt = planes.clone()
         corrupt[1, -1, 5] = bad
         narrowed = mesh.narrow_planes(corrupt, hd).to(torch.int32)
-        assert not bool(tiling.assemble_image(narrowed, hd)[1])
+        assert not bool(tiling.assemble_images(narrowed, plan)[1][0])

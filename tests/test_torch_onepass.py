@@ -8,7 +8,10 @@ on the CPU with the plain PyTorch versions of the kernels:
   vmapped ``_assemble_image_body``;
 * the eager same-shape encode chain against ``_fused_encode_chain_images``
   and the decode chain against ``_fused_decode_images_chain``, both with
-  Pallas in interpret mode;
+  Pallas in interpret mode, and the graph branch of the group dispatch
+  against both, a stub in place of the capture running the same body;
+* the input layouts (fill, then the body's views) and the plan's one read
+  of the hints a group;
 * the graph cache's bookkeeping, with stubs in place of the capture.
 
 Tolerance zero: payload bytes, bit counts, k values, pixels and flags are
@@ -28,7 +31,7 @@ from felics_tpu.ops import pallas_codec as pc
 from felics_tpu.ops.kscan_tiled import num_buckets as ref_num_buckets
 from felics_tpu.parallel import tiling as ref
 from felics_tpu_torch.config import TileConfig, tiled_config_for_depth
-from felics_tpu_torch.device import upload_image
+from felics_tpu_torch.device import as_pixels, pack, upload_image
 from felics_tpu_torch.format import PixelDepth, header_for_array
 from felics_tpu_torch.ops import tile_codec as tcd
 from felics_tpu_torch.parallel import flct, graphs, tiling
@@ -190,9 +193,12 @@ def test_batched_assembly(name, dtype, c):
     h0 = header_for_array(images[0])
     hd = flct.TiledHeader(h0.color_type, h0.pixel_depth, 13, 11, tw, th, per,
                           np.zeros(per, np.int64))
-    out, valid = tiling.assemble_images(bufs, hd, 4)
-    one = [tiling.assemble_image(bufs[i * per : (i + 1) * per], hd) for i in range(4)]
-    assert torch.equal(out, torch.stack([o for o, _ in one]))
+    plan = tiling.decode_plan([hd] * 4, np.zeros(4 * per, np.int64))
+    out, valid = tiling.assemble_images(bufs, plan)
+    one = [tiling.assemble_images(bufs[i * per : (i + 1) * per],
+                                  tiling.decode_plan([hd], hd.tile_lengths))
+           for i in range(4)]
+    assert torch.equal(out, torch.cat([o for o, _ in one]))
     assert valid.tolist() == [bool(v) for _, v in one]
     assert valid.tolist()[:3] == [True, False, False]
     assert valid.tolist()[3] == (c == 1)
@@ -207,7 +213,7 @@ def test_batched_assembly(name, dtype, c):
         if ok:
             assert np.array_equal(o.numpy(), r.astype(np.int32))
     # the flags and narrowed images that travel to the host
-    flags, *imgs = tiling.assembled([hd] * 4, bufs)
+    flags, *imgs = tiling.assembled(plan, bufs)
     assert flags.tolist() == valid.tolist() and len(imgs) == 4
     assert imgs[0].dtype == (torch.uint8 if dtype == np.uint8 else torch.int16)
 
@@ -233,27 +239,22 @@ def _fresh_jax_caches():
     yield
 
 
-def _encode_chain(images, th, tw):
-    """The port's eager chain of a same-shape group on the CPU: (bit
-    counts, payload bytes as compacted on the device, k0), after checking
-    that the hints held (no redo)."""
-    headers = [header_for_array(im) for im in images]
-    p = tiling.encode_dispatch(images, headers, th, tw, True, CPU)
-    bits, total, pay, k0 = p.result.wait()
-    assert int(bits.max()) <= 32 * p.W and int(total[0]) <= 4 * p.cap
-    return bits, pay[: int(total[0])], k0, p
+def _chain_results(p):
+    """(bit counts, payload bytes as compacted on the device, k0) of a
+    dispatched group, after checking that the hints held (no redo)."""
+    bits, total, pay, k0 = (a.copy() for a in p.result.wait())
+    assert int(bits.max()) <= 32 * p.W and int(total[0]) <= 4 * p.plan.cap
+    return bits, pay[: int(total[0])], k0
 
 
-@pytest.mark.parametrize("name,images,tile", CHAINS, ids=[c[0] for c in CHAINS])
-def test_encode_chain_matches_fused_encode_chain_images(name, images, tile):
-    th, tw = tile
-    bits, pay, k0, p = _encode_chain(images, th, tw)
+def _assert_reference_encode(images, th, tw, bits, pay, k0):
+    """The chain's bit counts, payload and k0 are the reference's
+    single-dispatch chain's."""
     cfg = ref_config(_depth(images[0].dtype))
     c = 3 if images[0].ndim == 3 else 1
     t = th * tw
-    nt = p.tiles.shape[0]
     W = pc.encode_width_bound(cfg, t, c)
-    cap = ref.payload_cap_hint(cfg, nt, t, c)
+    cap = ref.payload_cap_hint(cfg, len(bits), t, c)
     r_pay, r_bits, r_k0, r_total = ref._fused_encode_chain_images(
         jnp.asarray(np.stack(images)), th, tw, cfg, ref_num_buckets(cfg), len(images),
         W, cap, True, c == 3)
@@ -263,19 +264,26 @@ def test_encode_chain_matches_fused_encode_chain_images(name, images, tile):
     tile_bytes = (bits + 7) // 8
     assert bytes(pay) == ref._strip_word_alignment(
         np.asarray(r_pay)[: int(r_total)], tile_bytes)
-    # and the finish half packs the reference's containers
-    blobs = tiling.encode_finish(p)
-    assert blobs == [ref.compress_tiled_bytes(im, TileConfig(th, tw), engine="xla")
-                     for im in images]
+
+
+def _reference_containers(images, th, tw):
+    return [ref.compress_tiled_bytes(im, TileConfig(th, tw), engine="xla") for im in images]
 
 
 @pytest.mark.parametrize("name,images,tile", CHAINS, ids=[c[0] for c in CHAINS])
-def test_decode_chain_matches_fused_decode_images_chain(name, images, tile):
+def test_encode_chain_matches_fused_encode_chain_images(name, images, tile):
+    th, tw = tile
+    headers = [header_for_array(im) for im in images]
+    p = tiling.encode_dispatch(images, headers, th, tw, True, CPU)
+    _assert_reference_encode(images, th, tw, *_chain_results(p))
+    # and the finish half packs the reference's containers
+    assert tiling.encode_finish(p) == _reference_containers(images, th, tw)
+
+
+def _decode_cases(images, th, tw):
     """The two containers, and the same pair with the second's payload
     turned to zero bytes (every pixel one below its neighbours: values
-    soon below 0), through the port's eager decode chain and the reference's
-    single-dispatch chain: the same images and validity flags."""
-    th, tw = tile
+    soon below 0): (headers, payloads, the flags they decode to)."""
     blobs = [tiling.compress_tiled_bytes(im, TileConfig(th, tw), device=CPU)
              for im in images]
     hd1 = flct.read_tiled_header(blobs[1])
@@ -283,29 +291,202 @@ def test_decode_chain_matches_fused_decode_images_chain(name, images, tile):
     bad[hd1.payload_off :] = bytes(len(bad) - hd1.payload_off)
     for datas, want_flags in ((blobs, [True, True]), ([blobs[0], bytes(bad)], [True, False])):
         headers = [flct.read_tiled_header(d) for d in datas]
-        payloads = [tiling.payload_of(d, hd) for d, hd in zip(datas, headers)]
+        yield headers, [tiling.payload_of(d, hd) for d, hd in zip(datas, headers)], want_flags
+
+
+def _assert_reference_decode(images, th, tw, headers, payloads, imgs, flags, want_flags):
+    """The images and flags are the reference's single-dispatch chain's."""
+    h0 = headers[0]
+    cfg = ref_config(h0.pixel_depth)
+    c = h0.num_channels
+    lens = np.concatenate([hd.tile_lengths for hd in headers])
+    starts = np.concatenate([[0], np.cumsum(lens)[:-1]])
+    payload = b"".join(payloads)
+    buf = np.frombuffer(payload.ljust(ref._bucket_bytes(len(payload)), b"\0"), np.uint8)
+    prior = np.stack([flct.prior_from_k0(hd.k0, tiled_config_for_depth(h0.pixel_depth), c)
+                      for hd in headers])
+    prior = np.repeat(prior, h0.n_tiles, axis=0)
+    ty, tx = TileConfig(th, tw).grid(h0.height, h0.width)
+    wd = pc.bucket_words(int(-(-lens.max() // 4)))
+    r_out, r_valid = ref._fused_decode_images_chain(
+        jnp.asarray(buf), jnp.asarray(starts, jnp.int32), jnp.asarray(lens, jnp.int32),
+        jnp.asarray(prior), th, tw, c, cfg, wd, len(headers), ty, tx, h0.height,
+        h0.width, (1 << cfg.depth_bits) - 1, True)
+    assert flags.tolist() == np.asarray(r_valid).tolist() == want_flags
+    for im, got, r, ok in zip(images, imgs, np.asarray(r_out), flags):
+        if ok:
+            assert got.dtype == im.dtype
+            assert np.array_equal(got, r) and np.array_equal(got, im)
+
+
+@pytest.mark.parametrize("name,images,tile", CHAINS, ids=[c[0] for c in CHAINS])
+def test_decode_chain_matches_fused_decode_images_chain(name, images, tile):
+    """Both pairs of ``_decode_cases`` through the port's eager decode chain
+    and the reference's single-dispatch chain: the same images and validity
+    flags."""
+    th, tw = tile
+    for headers, payloads, want_flags in _decode_cases(images, th, tw):
         imgs, flags = tiling.decode_finish(tiling.decode_dispatch(headers, payloads, CPU))
-        h0 = headers[0]
-        cfg = ref_config(h0.pixel_depth)
-        c = h0.num_channels
-        lens = np.concatenate([hd.tile_lengths for hd in headers])
-        starts = np.concatenate([[0], np.cumsum(lens)[:-1]])
-        payload = b"".join(payloads)
-        buf = np.frombuffer(payload.ljust(ref._bucket_bytes(len(payload)), b"\0"), np.uint8)
-        prior = np.stack([flct.prior_from_k0(hd.k0, tiled_config_for_depth(h0.pixel_depth), c)
-                          for hd in headers])
-        prior = np.repeat(prior, h0.n_tiles, axis=0)
-        ty, tx = TileConfig(th, tw).grid(h0.height, h0.width)
-        wd = pc.bucket_words(int(-(-lens.max() // 4)))
-        r_out, r_valid = ref._fused_decode_images_chain(
-            jnp.asarray(buf), jnp.asarray(starts, jnp.int32), jnp.asarray(lens, jnp.int32),
-            jnp.asarray(prior), th, tw, c, cfg, wd, len(headers), ty, tx, h0.height,
-            h0.width, (1 << cfg.depth_bits) - 1, True)
-        assert flags.tolist() == np.asarray(r_valid).tolist() == want_flags
-        for im, got, r, ok in zip(images, imgs, np.asarray(r_out), flags):
-            if ok:
-                assert got.dtype == im.dtype
-                assert np.array_equal(got, r) and np.array_equal(got, im)
+        _assert_reference_decode(images, th, tw, headers, payloads, imgs, flags, want_flags)
+
+
+class CpuGraph:
+    """``graphs.capture``'s graph on the CPU: the static input buffer the
+    group's fill writes, and a replay that runs the captured body on it."""
+
+    def __init__(self, key, in_bytes, body):
+        self.key, self.body, self.nbytes = key, body, in_bytes
+        self.host_in = torch.zeros(in_bytes, dtype=torch.uint8)
+
+    def replay(self):
+        tensors, self.outputs = self.body(self.host_in)
+        self.host_out, self.specs = pack(*tensors)
+        graphs.REPLAYS[self.key[0]] += 1
+
+    def settle(self):
+        pass
+
+
+@pytest.fixture
+def cpu_graphs(monkeypatch):
+    """Same-shape groups on the CPU through the graph branch of the group
+    dispatch, with ``CpuGraph`` in place of the capture, fresh hints and
+    a fresh cache."""
+    cache = graphs.GraphCache(8, 1 << 40)
+    monkeypatch.setattr(tcd, "_w_hints", {})
+    monkeypatch.setattr(tiling, "_cap_hints", {})
+    monkeypatch.setattr(tiling, "keyed", lambda plan, device: tiling.same_shape(plan.dims))
+    monkeypatch.setattr(graphs, "cache", lambda device: cache)
+    monkeypatch.setattr(graphs, "capture",
+                        lambda key, device, in_bytes, body: CpuGraph(key, in_bytes, body))
+    return cache
+
+
+def _replayed(direction, dispatch, finish, calls=4):
+    """The first of up to ``calls`` dispatches that replayed a graph
+    (a plan runs eagerly at its first sighting, and a hint that moves after
+    the first call makes a new plan); the others are finished."""
+    for _ in range(calls):
+        before = graphs.REPLAYS[direction]
+        p = dispatch()
+        if graphs.REPLAYS[direction] > before:
+            return p
+        finish(p)
+    raise AssertionError(f"no {direction} graph replayed in {calls} calls")
+
+
+@pytest.mark.parametrize("direction", ["encode", "decode", "decode corrupt"])
+@pytest.mark.parametrize("name,images,tile", CHAINS, ids=[c[0] for c in CHAINS])
+def test_graph_branch_matches_eager_chain_and_fused_chains(cpu_graphs, name, images, tile,
+                                                           direction):
+    """The group dispatch's graph branch (fill the graph's input, replay
+    the captured body, copy back) gives the eager chain's results, and so
+    the reference's single-dispatch chains': bit counts, payload, k0 and
+    containers; images and validity flags, also of a corrupt payload."""
+    th, tw = tile
+    if direction == "encode":
+        headers = [header_for_array(im) for im in images]
+        eager = tiling.encode_dispatch(images, headers, th, tw, True, CPU)
+        want = _chain_results(eager)
+        p = _replayed("encode", lambda: tiling.encode_group_dispatch(
+            images, headers, th, tw, True, CPU), tiling.encode_finish)
+        assert isinstance(p.result, graphs.Lease)
+        assert p.result.graph.key == p.plan
+        got = _chain_results(p)
+        assert all(np.array_equal(a, b) for a, b in zip(got, want))
+        _assert_reference_encode(images, th, tw, *got)
+        assert tiling.encode_finish(p) == tiling.encode_finish(eager) == \
+            _reference_containers(images, th, tw)
+        return
+    headers, payloads, want_flags = list(_decode_cases(images, th, tw))[
+        direction == "decode corrupt"]
+    want_imgs, want_ok = tiling.decode_finish(tiling.decode_dispatch(headers, payloads, CPU))
+    p = _replayed("decode", lambda: tiling.decode_group_dispatch(headers, payloads, CPU),
+                  tiling.decode_finish)
+    assert isinstance(p, graphs.Lease)
+    imgs, flags = tiling.decode_finish(p)
+    assert flags.tolist() == want_ok.tolist() == want_flags
+    assert all(np.array_equal(a, b) for a, b in zip(imgs, want_imgs))
+    _assert_reference_decode(images, th, tw, headers, payloads, imgs, flags, want_flags)
+
+
+@pytest.mark.parametrize("shapes", ["same shape", "mixed shapes"])
+@pytest.mark.parametrize("name,images,tile", CHAINS, ids=[c[0] for c in CHAINS])
+def test_input_layouts_round_trip(name, images, tile, shapes):
+    """Each direction's fill, then the body's views of the bytes it wrote:
+    the images (one batch, or one an image), and the length table, the
+    priors and the payload. The eager chains then give each image's
+    container and image back."""
+    th, tw = tile
+    if shapes == "mixed shapes":
+        images = [images[0], np.ascontiguousarray(images[1][:-2, 1:])]
+    headers = [header_for_array(im) for im in images]
+    plan = tiling.encode_plan(headers, th, tw, True)
+    host = torch.empty(plan.in_bytes(), dtype=torch.uint8)
+    tiling.fill_images(host.numpy(), plan, images)
+    views = tiling.image_views(host, plan)
+    assert len(views) == (1 if shapes == "same shape" else 2)
+    got = [im for v in views for im in as_pixels(v)]
+    assert all(np.array_equal(g.numpy(), im) for g, im in zip(got, images))
+    blobs = tiling.encode_finish(tiling.encode_dispatch(images, headers, th, tw, True, CPU))
+    assert blobs == [tiling.compress_tiled_bytes(im, TileConfig(th, tw), device=CPU)
+                     for im in images]
+
+    hds = [flct.read_tiled_header(b) for b in blobs]
+    payloads = [tiling.payload_of(b, hd) for b, hd in zip(blobs, hds)]
+    lens = np.concatenate([hd.tile_lengths for hd in hds])
+    dplan = tiling.decode_plan(hds, lens)
+    host = torch.empty(dplan.in_bytes(), dtype=torch.uint8)
+    tiling.fill_containers(host.numpy(), dplan, hds, lens, payloads)
+    lens_t, priors, pay = tiling.container_views(host, dplan)
+    cfg = tiled_config_for_depth(hds[0].pixel_depth)
+    assert np.array_equal(lens_t.numpy(), lens)
+    assert np.array_equal(priors.numpy(), np.stack(
+        [flct.prior_from_k0(hd.k0, cfg, hd.num_channels) for hd in hds]))
+    assert len(pay) == dplan.size and bytes(pay[: int(lens.sum())]) == b"".join(payloads)
+    imgs, ok = tiling.decode_finish(tiling.decode_dispatch(hds, payloads, CPU))
+    assert ok.all() and all(np.array_equal(a, b) for a, b in zip(imgs, images))
+
+
+def test_a_group_reads_each_hint_once(cpu_graphs, monkeypatch):
+    """Over calls that run eagerly, capture and replay, each group dispatch
+    reads the width hint and the capacity hint once, and its pending state,
+    its graph's key and its chain take them from its plan."""
+    images, (th, tw) = CHAINS[1][1], CHAINS[1][2]
+    headers = [header_for_array(im) for im in images]
+    reads = {"width": [], "cap": []}
+    real_width, real_cap = tcd.width_hint, tiling.payload_cap_hint
+
+    def width_hint(*a):
+        reads["width"].append(real_width(*a))
+        return reads["width"][-1]
+
+    def payload_cap_hint(*a):
+        reads["cap"].append(real_cap(*a))
+        return reads["cap"][-1]
+
+    monkeypatch.setattr(tcd, "width_hint", width_hint)
+    monkeypatch.setattr(tiling, "payload_cap_hint", payload_cap_hint)
+    encodes = []
+    real_encode = tcd.encode_tiles
+
+    def encode_tiles(*a):
+        encodes.append(a[4])
+        return real_encode(*a)
+
+    monkeypatch.setattr(tcd, "encode_tiles", encode_tiles)
+    replays = graphs.REPLAYS["encode"]
+    for call in range(1, 5):
+        p = tiling.encode_group_dispatch(images, headers, th, tw, True, CPU)
+        assert len(reads["width"]) == len(reads["cap"]) == call
+        assert (p.W, p.plan.W, p.plan.cap) == (reads["width"][-1], reads["width"][-1],
+                                               reads["cap"][-1])
+        if isinstance(p.result, graphs.Lease):
+            assert p.result.graph.key == p.plan
+        else:
+            assert encodes[-1] == p.plan.W
+        tiling.encode_finish(p)
+    assert graphs.REPLAYS["encode"] > replays
 
 
 def test_group_dispatch_on_the_cpu_runs_the_eager_chain(monkeypatch):
@@ -317,12 +498,13 @@ def test_group_dispatch_on_the_cpu_runs_the_eager_chain(monkeypatch):
     monkeypatch.setattr(graphs, "cache", no_cache)
     images = CHAINS[0][1]
     headers = [header_for_array(im) for im in images]
-    assert tiling.encode_key(images, headers, 7, 5, True, CPU) is None
+    assert not tiling.keyed(tiling.encode_plan(headers, 7, 5, True), CPU)
     p = tiling.encode_group_dispatch(images, headers, 7, 5, True, CPU)
     blobs = tiling.encode_finish(p)
     assert blobs == tiling.encode_finish(tiling.encode_dispatch(images, headers, 7, 5, True, CPU))
     th_hd = [flct.read_tiled_header(b) for b in blobs]
-    assert tiling.decode_key(th_hd, CPU) is None
+    lens = np.concatenate([hd.tile_lengths for hd in th_hd])
+    assert not tiling.keyed(tiling.decode_plan(th_hd, lens), CPU)
     imgs, ok = tiling.decode_finish(tiling.decode_group_dispatch(
         th_hd, [tiling.payload_of(b, hd) for b, hd in zip(blobs, th_hd)], CPU))
     assert ok.all() and all(np.array_equal(a, b) for a, b in zip(imgs, images))
@@ -481,36 +663,45 @@ def test_cache_settles_a_graph_whose_lease_was_dropped():
 
 
 def test_a_moved_hint_makes_a_new_key(monkeypatch):
-    """The encode key holds the width and capacity hints: once a wider
-    stream or a smaller payload has been seen, the same group has a new
-    key (its first sight, so eager). The decode key holds the row width
-    and the payload's bucket. Mixed shapes have no key."""
+    """The encode plan, a same-shape group's key on CUDA, holds the width
+    and capacity hints: once a wider stream or a smaller payload has been
+    seen, the same group has a new key (its first sight, so eager). The
+    decode plan holds the row width and the payload's bucket. Mixed shapes
+    have no key."""
     images = [np.zeros((64, 64), np.uint8)] * 2
     headers = [header_for_array(im) for im in images]
     cuda = torch.device("cuda")
     monkeypatch.setattr(tcd, "_w_hints", {})
     monkeypatch.setattr(tiling, "_cap_hints", {})
-    first = tiling.encode_key(images, headers, 32, 32, True, cuda)
-    assert first == tiling.encode_key(images, headers, 32, 32, True, cuda)
-    assert first[:8] == ("encode", 32, 32, 1, PixelDepth.EIGHT, 2, 64, 64)
+    first = tiling.encode_plan(headers, 32, 32, True)
+    assert tiling.keyed(first, cuda) and first == tiling.encode_plan(headers, 32, 32, True)
+    assert (first.direction, first.tile_h, first.tile_w, first.num_channels,
+            first.pixel_depth, first.dims) == ("encode", 32, 32, 1, PixelDepth.EIGHT,
+                                               ((64, 64),) * 2)
     cfg = tiled_config_for_depth(PixelDepth.EIGHT)
     tcd.observe_width(cfg, 1024, 1, 32 * 1000)
-    wider = tiling.encode_key(images, headers, 32, 32, True, cuda)
-    assert wider[8] > first[8] and wider[:8] == first[:8] and wider[9:] == first[9:]
+    wider = tiling.encode_plan(headers, 32, 32, True)
+    assert wider.W > first.W and wider._replace(W=first.W) == first
     tiling.observe_payload(cfg, 1024, 1, 80, 8)
-    smaller = tiling.encode_key(images, headers, 32, 32, True, cuda)
-    assert smaller[9] < wider[9] and smaller[:9] == wider[:9]
-    assert tiling.encode_key([images[0], images[0][:-1]], headers, 32, 32, True,
-                             cuda) is None
+    smaller = tiling.encode_plan(headers, 32, 32, True)
+    assert smaller.cap < wider.cap and smaller._replace(cap=wider.cap) == wider
+    mixed = [header_for_array(im) for im in (images[0], images[0][:-1])]
+    assert not tiling.keyed(tiling.encode_plan(mixed, 32, 32, True), cuda)
     images = CHAINS[0][1]
     blobs = [tiling.compress_tiled_bytes(im, TileConfig(7, 5), device=CPU) for im in images]
     hds = [flct.read_tiled_header(b) for b in blobs]
-    key = tiling.decode_key(hds, cuda)
     lens = np.concatenate([hd.tile_lengths for hd in hds])
-    assert key[:8] == ("decode", 7, 5, 1, PixelDepth.EIGHT, 2, 19, 23)
-    assert key[8:] == (tiling.row_width(lens), tiling.payload_bucket(int(lens.sum())))
-    assert tiling.decode_key([hds[0], flct.read_tiled_header(tiling.compress_tiled_bytes(
-        images[0][:-1], TileConfig(7, 5), device=CPU))], cuda) is None
+    plan = tiling.decode_plan(hds, lens)
+    assert tiling.keyed(plan, cuda)
+    assert (plan.direction, plan.tile_h, plan.tile_w, plan.num_channels, plan.pixel_depth,
+            plan.dims, plan.nt) == ("decode", 7, 5, 1, PixelDepth.EIGHT, ((19, 23),) * 2,
+                                    len(lens))
+    assert (plan.wd, plan.size) == (tiling.row_width(lens),
+                                    tiling.payload_bucket(int(lens.sum())))
+    odd = [hds[0], flct.read_tiled_header(tiling.compress_tiled_bytes(
+        images[0][:-1], TileConfig(7, 5), device=CPU))]
+    assert not tiling.keyed(tiling.decode_plan(odd, np.concatenate(
+        [hd.tile_lengths for hd in odd])), cuda)
 
 
 def test_rgb_memory_layout_leaves_the_key_alone():
@@ -521,12 +712,16 @@ def test_rgb_memory_layout_leaves_the_key_alone():
     interleaved = [rng.integers(0, 256, (40, 24, 3), dtype=np.uint8) for _ in range(2)]
     planes = [np.ascontiguousarray(im.transpose(2, 0, 1)).transpose(1, 2, 0)
               for im in interleaved]
-    headers = [header_for_array(im) for im in interleaved]
     cuda = torch.device("cuda")
-    a = tiling.encode_key(interleaved, headers, 8, 8, True, cuda)
-    assert a is not None
-    assert tiling.encode_key(planes, headers, 8, 8, True, cuda) == a
-    assert tiling.encode_key([planes[0], interleaved[1]], headers, 8, 8, True, cuda) == a
+    filled = []
+    for images in (interleaved, planes, [planes[0], interleaved[1]]):
+        plan = tiling.encode_plan([header_for_array(im) for im in images], 8, 8, True)
+        assert tiling.keyed(plan, cuda)
+        host = np.zeros(plan.in_bytes(), np.uint8)
+        tiling.fill_images(host, plan, images)
+        filled.append((plan, host.tobytes()))
+    assert filled[0] == filled[1] == filled[2]
+    assert filled[0][1] == np.stack(interleaved).tobytes()
 
 
 def test_payload_bucket_matches_reference():

@@ -22,6 +22,7 @@ from torch.profiler import ProfilerActivity, profile
 
 from felics_tpu_torch import spans
 from felics_tpu_torch.config import TileConfig
+from felics_tpu_torch.format import header_for_array
 from felics_tpu_torch.ops import tile_codec as tcd
 from felics_tpu_torch.parallel import batch, graphs, tiling
 
@@ -121,8 +122,9 @@ def test_a_width_redo_is_counted(monkeypatch):
     monkeypatch.setattr(tcd, "_w_hints", {})
     monkeypatch.setattr(tiling, "_cap_hints", {})
     tiles, prior, cfg = _overflow_inputs(CPU)
+    plan = tiling.encode_plan([header_for_array(np.zeros((16, 16), np.uint8))], 8, 8, True)
     redos = dict(tiling.REDOS)
-    p = tiling.shard_dispatch(tiles, prior, cfg, 8, 8)
+    p = tiling.shard_dispatch(tiles, prior, plan)
     assert int(p.bits.max()) > 32 * p.W
     tile_bytes, payload, _ = tiling.shard_finish(p)
     assert len(payload) == int(tile_bytes.sum())
