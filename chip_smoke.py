@@ -6,6 +6,7 @@
     python3 chip_smoke.py --flct     # FLCT kernels and main path alone
     python3 chip_smoke.py --stream   # FLCT stream vs one-shot, profiled
     python3 chip_smoke.py --graphs   # phase 11 alone: FLCT graphs vs eager
+    python3 chip_smoke.py --k2 TREE  # K2 against TREE's K2, in turns
 
 Phases, one line each, any failure exits non-zero and prints no result:
 
@@ -22,9 +23,11 @@ Phases, one line each, any failure exits non-zero and prints no result:
    on garbage words;
 3. the main path at full size: 12x512^2 gray8, 8x512^2x3 rgb8 and 4x512^2
    gray16 (bench.py's synthetic recipe, seed 0): K1 and K2 against their
-   plain versions at each batch's shapes (tile 32) and timed there and on
-   gray8 at tile 64; K5 (the k0/prior pass) against its plain version on
-   the same device tiles at gray8 t64, rgb8 t32 and gray16 t32 and timed
+   plain versions at each batch's shapes (tile 32) and timed there, on
+   gray8 at tile 64 and on the serve stream's chunk (3 gray8 images at
+   tile 64: K2's us a step and the share of its steps on the slow path);
+   K5 (the k0/prior pass) against its plain version on the same device
+   tiles at gray8 t64, rgb8 t32 and gray16 t32 and timed
    there beside its bound, its plain version and its launches a call; then
    each class at tile 32, and gray8 at tiles 64
    and 256, through compress_tiled_batch / decompress_tiled_batch on
@@ -185,6 +188,11 @@ PROFILE_TRIES = 3
 # nearest entry to the kernels' 32-bit integer operations.
 HBM_BYTES_S = 3.35e12
 SCALAR_OPS_S = 67e12
+# K2's shape in the serve stream: a chunk of 3 gray8 512^2 images at tile
+# 64 (192 tiles). --k2 times K2 there and at the batch shapes, in turns
+# with another tree's K2 (K2_ROUNDS rounds of other, this, this, other).
+K2_CHUNK = 3
+K2_ROUNDS = 3
 # Integer operations counted per pixel step of K1, K2 and K4 (neighbours,
 # context, marker, code, table), and per k-table entry of a K3 update.
 OPS_PER_STEP = 10
@@ -287,8 +295,10 @@ def flct_kernel_inputs(torch, dev, images, tile):
 def flct_kernel_times(torch, ks, reps: int = 10) -> dict:
     """K1 and K2 at one batch's shape: mean ms of `reps` warm calls of each
     wrapper (CUDA events) and of the kernel alone (profiler), K2's us a
-    pixel step of one tile's chain, and each kernel's bound (in: tiles, per-tile priors, the words the streams use; out: the
-    words, bit counts, planes)."""
+    pixel step of one tile's chain, its tiles a block and the share of its
+    steps that took the slow path (codes longer than its 32-bit window),
+    and each kernel's bound (in: tiles, per-tile priors, the words the
+    streams use; out: the words, bit counts, planes)."""
     from felics_tpu_torch.ops import tile_codec as tcd
 
     tiles, prior, cfg, tile = ks["tiles"], ks["prior"], ks["cfg"], ks["tile"]
@@ -302,10 +312,14 @@ def flct_kernel_times(torch, ks, reps: int = 10) -> dict:
         return tcd.decode_tiles(words, cfg, tile, tile, c, prior)
 
     enc, dec = cuda_ms(torch, encode, reps), cuda_ms(torch, decode, reps)
+    slow = torch.zeros(1, dtype=torch.int64, device=words.device)
+    tcd.decode_tiles(words, cfg, tile, tile, c, prior, slow_steps=slow)
     used = int(((bits + 31) // 32).sum()) * 4
     ops = OPS_PER_STEP * tiles.numel()
     return {"tiles": nt, "planes": c, "tile": tile, "W": W, "encode_ms": enc,
             "decode_ms": dec, "decode_us_per_step": dec * 1e3 / (c * (t - 2)),
+            "decode_tpb": tcd.decode_tiles_per_block(nt),
+            "decode_slow_share": int(slow) / (nt * c * (t - 2)),
             # the kernel alone, without the wrapper's checks, allocations
             # and (encode) zeroing of the word rows
             "encode_kernel_ms": device_ms(torch, encode, "flct_encode_kernel", reps),
@@ -1787,6 +1801,15 @@ def main() -> None:
     kt["gray8 t64"] = flct_kernel_times(torch, ks)
     say("3 kernels", nvidia_smi=card, cls="gray8",
         **{k: v for k, v in kt["gray8 t64"].items() if not k.endswith("bound")})
+    # K2 at the serve stream's chunk (K2_CHUNK gray8 images at tile 64: 192
+    # tiles, one a block), where each chain has a warp to itself.
+    ks = flct_kernel_inputs(torch, dev, classes[0][1][:K2_CHUNK], 64)
+    chunk = tcd.decode_tiles(ks["words"], ks["cfg"], 64, 64, 1, ks["prior"])
+    if not torch.equal(chunk, ks["tiles"]):
+        fail("K2 at the stream chunk's shape: planes differ from the tiles")
+    kt["gray8 t64 chunk"] = flct_kernel_times(torch, ks)
+    say("3 kernels", nvidia_smi=card, cls="gray8 chunk",
+        **{k: v for k, v in kt["gray8 t64 chunk"].items() if not k.endswith("bound")})
     by_name = dict(classes)
     k5 = {f"{name} t{tile}": k0_prior_times(np, torch, dev, by_name[name], tile)
           for name, tile in K5_SHAPES}
@@ -2175,6 +2198,7 @@ def main() -> None:
               g8k["decode_plain_ms"], g8k["decode_bound"], shape=flct_shape,
               full_shape_ms_by_class=flct_by_class("decode_ms"),
               us_per_step_by_class=flct_by_class("decode_us_per_step"),
+              slow_share_by_class=flct_by_class("decode_slow_share"),
               kernel_only_ms_by_class=flct_by_class("decode_kernel_ms"),
               plain_ms_by_class=flct_by_class("decode_plain_ms"),
               bound_ms_by_class={c: r["decode_bound"][0] for c, r in kt.items()},
@@ -2402,7 +2426,7 @@ def flct_only() -> None:
     classes = flct_classes(np)
     cases = [(name, images, TILE) for name, images in classes]
     cases.append(("gray8", classes[0][1], 64))
-    for name, images, tile in cases:
+    for name, images, tile in cases + [("gray8 chunk", classes[0][1][:K2_CHUNK], 64)]:
         row = flct_kernel_times(torch, flct_kernel_inputs(torch, dev, images, tile))
         print(json.dumps({"nvidia_smi": card, "cls": name, "kernels": row}), flush=True)
     by_name = dict(classes)
@@ -2414,6 +2438,144 @@ def flct_only() -> None:
         print(json.dumps({"nvidia_smi": card, "cls": name, "main_path": row}), flush=True)
 
 
+def k2_library(src_dir: str, tag: str, defines=()):
+    """K2 alone, from the flct_decode.cu of the tree at `src_dir`, built with
+    the package's nvcc flags into a library of its own. Returns the library
+    (ctypes), whether its entry takes a slow-step count, and ptxas's log."""
+    import ctypes
+
+    from felics_tpu_torch.ops import _build
+
+    src = os.path.join(src_dir, "felics_tpu_torch", "csrc", "flct_decode.cu")
+    with open(src) as f:
+        counts_slow = "slow_steps" in f.read()
+    out_dir = os.path.join(_build.BUILD_DIR, "k2")
+    os.makedirs(out_dir, exist_ok=True)
+    out = os.path.join(out_dir, f"lib{tag}.so")
+    cmd = [_build.nvcc_path(), *_build.NVCC_FLAGS, *defines, "-shared", "-o", out, src]
+    r = subprocess.run(cmd, capture_output=True, text=True)
+    if r.returncode:
+        fail(f"nvcc of {src} failed: {r.stdout}{r.stderr}")
+    lib = ctypes.CDLL(out)
+    vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.flct_decode.restype = i32
+    lib.flct_decode.argtypes = [
+        vp, vp, i64, vp, i32, i32, i32, i32, i32, i32, i32, i32, i64, i32, i32, i32, vp,
+        *([vp] if counts_slow else []), vp]
+    return lib, counts_slow, r.stdout + r.stderr
+
+
+def k2_launcher(torch, lib, counts_slow: bool, ks: dict):
+    """A function that launches `lib`'s K2 on one shape's inputs as
+    tile_codec.decode_tiles launches the package's (same tiles a block,
+    rings, positions), into a fixed output; it takes an optional slow-step
+    count."""
+    from felics_tpu_torch.ops import _build
+    from felics_tpu_torch.ops import tile_codec as tcd
+
+    words, prior, cfg, tile = ks["words"], ks["prior"], ks["cfg"], ks["tile"]
+    n, W = words.shape
+    c = ks["tiles"].shape[1]
+    K, nb = cfg.num_k, tcd.num_buckets(cfg)
+    tpb = tcd.decode_tiles_per_block(n)
+    shared = tcd.decode_smem_bytes(K, tile, tpb) <= _build.library().flcs_decode_smem_limit()
+    rings = None if shared else torch.empty((-(-n // tpb), (tile + 1) * (tpb + 1)),
+                                            dtype=torch.int32, device=words.device)
+    stride = 0 if prior.dim() == 3 else c * nb * K
+    out = torch.empty((n, c, tile * tile), dtype=torch.int32, device=words.device)
+
+    def launch(slow=None):
+        code = lib.flct_decode(
+            words.data_ptr(), prior.data_ptr(), stride, out.data_ptr(), n, c, tile, tile,
+            cfg.depth_bits, nb, K, int(cfg.max_context), W, tpb, int(shared),
+            int(tcd.decode_wide_positions(W, c, tile, tile)),
+            None if rings is None else rings.data_ptr(),
+            *([None if slow is None else slow.data_ptr()] if counts_slow else []),
+            torch.cuda.current_stream().cuda_stream)
+        if code:
+            fail(f"K2 launch failed: CUDA error {code}")
+        return out
+
+    return launch
+
+
+def k2_only(other: str) -> None:
+    """K2 of this tree against K2 of the tree at `other` (a git archive of
+    another commit), both built alone with the same flags: exact at each
+    shape (both decode the tiles K1 encoded), then timed in turns (other,
+    this, this, other; K2_ROUNDS rounds, each a mean of 10 warm launches
+    from CUDA events) at the batch shapes (gray8 t32 and t64, rgb8 t32,
+    gray16 t32) and the serve stream's chunk, with us a step and this
+    tree's slow-step share; then this tree's clock64() breakdown of a step
+    at the chunk (a build with -DFLCT_DECODE_CLOCKS). One JSON line each."""
+    import ctypes
+    import statistics
+
+    np, torch = need_gpu_and_repo()
+    from felics_tpu_torch.ops import tile_codec as tcd
+
+    dev = torch.device("cuda")
+    card = smi()
+    other = os.path.abspath(other)
+    this, counts_slow, log = k2_library(REPO, "this")
+    that, that_slow, _ = k2_library(other, "other")
+    frames = {f: v for f, v in ptxas_frames(log).items() if "flct_decode_kernel" in f}
+    if len(frames) < 8 or any(any(v) for v in frames.values()):
+        fail(f"K2 ptxas (stack, spill stores, spill loads): {frames}")
+    print(json.dumps({"nvidia_smi": card, "other": other,
+                      "k2_ptxas": [ln.strip() for ln in log.splitlines()
+                                   if "registers" in ln or "stack frame" in ln]}), flush=True)
+    classes = dict(flct_classes(np))
+    shapes = [("gray8 t32", classes["gray8"], 32), ("gray8 t64", classes["gray8"], 64),
+              ("rgb8 t32", classes["rgb8"], 32), ("gray16 t32", classes["gray16"], 32),
+              ("gray8 t64 chunk", classes["gray8"][:K2_CHUNK], 64)]
+    for name, images, tile in shapes:
+        ks = flct_kernel_inputs(torch, dev, images, tile)
+        mine = k2_launcher(torch, this, counts_slow, ks)
+        theirs = k2_launcher(torch, that, that_slow, ks)
+        slow = torch.zeros(1, dtype=torch.int64, device=dev)
+        for side, launch in (("this", lambda: mine(slow)), ("other", theirs)):
+            if not torch.equal(launch(), ks["tiles"]):
+                fail(f"K2 of {side} at {name}: planes differ from the tiles")
+        times = {"other": [], "this": []}
+        for _ in range(K2_ROUNDS):
+            for side, launch in (("other", theirs), ("this", mine), ("this", mine),
+                                 ("other", theirs)):
+                times[side].append(cuda_ms(torch, launch, 10))
+        nt, c, t = ks["tiles"].shape
+        steps = c * (t - 2)
+        med = {side: statistics.median(v) for side, v in times.items()}
+        print(json.dumps({
+            "nvidia_smi": card, "k2": name, "tiles": nt, "planes": c, "tile": tile,
+            "tpb": tcd.decode_tiles_per_block(nt), "ms": times,
+            "median_ms": med, "us_per_step": {k: v * 1e3 / steps for k, v in med.items()},
+            "this_over_other": med["this"] / med["other"],
+            "this_won_turns": sum(a < b for a, b in zip(times["this"], times["other"])),
+            "slow_share": int(slow) / (nt * steps) if counts_slow else None}), flush=True)
+    # Where a step's cycles go, at the chunk: the debug build's clock64()
+    # stamps (each waits for its part's result, so the parts are serialised
+    # and add up to more than an uninstrumented step).
+    clocked, _, _ = k2_library(REPO, "clocks", ("-DFLCT_DECODE_CLOCKS",))
+    clocked.flct_decode_clocks.restype = ctypes.c_int
+    clocked.flct_decode_clocks.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    sums = (ctypes.c_ulonglong * 9)()
+    ks = flct_kernel_inputs(torch, dev, classes["gray8"][:K2_CHUNK], 64)
+    launch = k2_launcher(torch, clocked, True, ks)
+    launch()
+    torch.cuda.synchronize()
+    clocked.flct_decode_clocks(sums, 1)
+    if not torch.equal(launch(), ks["tiles"]):
+        fail("K2's clock build: planes differ from the tiles")
+    torch.cuda.synchronize()
+    if clocked.flct_decode_clocks(sums, 1):
+        fail("K2's clock build: reading the sums failed")
+    parts = ("context", "k", "bits", "run", "value", "update", "copy", "ring_loop")
+    steps = sums[8]
+    print(json.dumps({"nvidia_smi": card, "k2_clocks": "gray8 t64 chunk", "steps": steps,
+                      "cycles_per_step": {p: sums[i] / steps for i, p in enumerate(parts)},
+                      "sum": sum(sums[:8]) / steps}), flush=True)
+
+
 if __name__ == "__main__":
     if sys.argv[1:] == ["--stages"]:
         stages()
@@ -2423,6 +2585,8 @@ if __name__ == "__main__":
         stream_trace()
     elif sys.argv[1:] == ["--graphs"]:
         graphs_only()
+    elif sys.argv[1:2] == ["--k2"] and len(sys.argv) == 3:
+        k2_only(sys.argv[2])
     elif sys.argv[1:2] == ["--worker"]:  # a rank of phase 8's process groups
         backend, address, world, rank, out_dir = sys.argv[2:]
         group_worker(backend, address, int(world), int(rank), out_dir)

@@ -128,7 +128,7 @@ def library() -> ctypes.CDLL:
         lib.flct_decode.restype = i32
         lib.flct_decode.argtypes = [
             vp, vp, i64, vp, i32, i32, i32, i32, i32, i32, i32, i32, i64, i32,
-            i32, i32, vp, vp,
+            i32, i32, vp, vp, vp,
         ]
         lib.flct_k0_prior.restype = i32
         lib.flct_k0_prior.argtypes = [

@@ -21,6 +21,8 @@ Contract shared by both sides (and by the Pallas kernels):
 
 from __future__ import annotations
 
+from typing import Optional
+
 import numpy as np
 import torch
 
@@ -464,20 +466,30 @@ def decode_wide_positions(W: int, c: int, th: int, tw: int) -> bool:
 
 def decode_tiles(
     words: torch.Tensor, cfg: CodingConfig, th: int, tw: int, c: int,
-    prior: torch.Tensor,
+    prior: torch.Tensor, *, slow_steps: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Decode (n, W) int32 word rows into (n, C, t) int32 planes. CUDA
     tensors launch flct_decode.cu (its 64-bit-position instantiation for
     rows that ``decode_wide_positions`` calls long); CPU tensors run
-    ``decode_tiles_ref``."""
+    ``decode_tiles_ref``.
+
+    ``slow_steps``, a (1,) int64 tensor on the words' CUDA device, gets the
+    kernel's slow-path steps added to it (codes that do not fit its 32-bit
+    window); the main path passes none."""
     if words.dim() != 2 or words.dtype != torch.int32:
         raise ValueError("words must be an (n, W) int32 tensor")
     n, W = words.shape
     nb, K = _check_geometry(th, tw, c, cfg)
     if words.device.type == "cpu":
+        if slow_steps is not None:
+            raise ValueError("slow_steps counts the CUDA kernel's steps")
         return decode_tiles_ref(words, cfg, th, tw, c, prior)
     if words.device.type != "cuda":
         raise ValueError(f"unsupported device {words.device}")
+    if slow_steps is not None and (
+            slow_steps.dtype != torch.int64 or slow_steps.numel() != 1
+            or slow_steps.device != words.device or not slow_steps.is_contiguous()):
+        raise ValueError(f"slow_steps must be one int64 on {words.device}")
     _build.check_kernel_k(K)
     wide = decode_wide_positions(W, c, th, tw)
     prior, stride = _check_prior(prior, n, c, nb, K, words.device)
@@ -496,6 +508,7 @@ def decode_tiles(
             th, tw, cfg.depth_bits, nb, K, int(cfg.max_context), W,
             tpb, int(ring_shared), int(wide),
             None if rings is None else rings.data_ptr(),
+            None if slow_steps is None else slow_steps.data_ptr(),
             torch.cuda.current_stream().cuda_stream,
         )
     _build.check(code, "flct_decode")

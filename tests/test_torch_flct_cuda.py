@@ -264,6 +264,147 @@ def test_cuda_decode_long_row_takes_wide_positions(cuda):
     assert torch.equal(got, tiles)
 
 
+# One tile whose first coded pixel of its last plane lies v + 1 above its
+# context, under a prior that holds every bucket at k = 0: its code is a run
+# of v ones, 3 + v bits in all, which K2's 32-bit window holds up to v = 29.
+# name, depth, planes, tile, v, the kernel's slow-path steps
+RUN_CASES = [
+    ("gray8 run to the window's edge", 8, 1, (8, 8), 29, 0),
+    ("gray8 run one past the window", 8, 1, (8, 8), 30, 1),
+    ("gray8 run of 150", 8, 1, (8, 8), 150, 1),
+    ("gray16 run of 5000", 16, 1, (8, 8), 5000, 1),
+    ("rgb16 Cg run to the window's edge", 16, 3, (4, 4), 29, 0),
+    ("rgb16 Cg run of 60000", 16, 3, (4, 4), 60000, 1),
+    ("rgb8 Cg run one past the window", 8, 3, (4, 4), 30, 1),
+]
+RUN_IDS = [c[0] for c in RUN_CASES]
+
+
+def _run_tile(depth, c, tile, v, device):
+    """(tiles, prior, cfg) of a RUN_CASES tile: constant planes (100 for Y,
+    0 for Co/Cg), the last plane's third pixel at base + 1 + v."""
+    cfg = tiled_config_for_depth(PixelDepth.EIGHT if depth == 8 else PixelDepth.SIXTEEN)
+    th, tw = tile
+    tiles = torch.zeros((1, c, th * tw), dtype=torch.int32)
+    tiles[:, 0] = 100
+    tiles[0, c - 1, 2] = int(tiles[0, c - 1, 0]) + 1 + v
+    nb, K = tcd.num_buckets(cfg), cfg.num_k
+    prior = torch.full((c, nb, K), 1 << 20, dtype=torch.int32)
+    prior[..., 0] = 0
+    return tiles.to(device), prior.to(device), cfg
+
+
+def _encoded_at_exact_width(encode, tiles, prior, cfg, th, tw):
+    """Word rows of the tiles at a width that holds every stream."""
+    W = tcd.encode_width_bound(cfg, th * tw, tiles.shape[1])
+    words, bits = encode(tiles, cfg, th, tw, W, prior)
+    if int(bits.max()) > 32 * W:
+        W = tiling.exact_width(int(bits.max()))
+        words, bits = encode(tiles, cfg, th, tw, W, prior)
+    return words
+
+
+@pytest.mark.parametrize("name,depth,c,tile,v,slow", RUN_CASES, ids=RUN_IDS)
+def test_plain_versions_on_runs_past_the_window(name, depth, c, tile, v, slow):
+    tiles, prior, cfg = _run_tile(depth, c, tile, v, CPU)
+    words = _encoded_at_exact_width(tcd.encode_tiles_ref, tiles, prior, cfg, *tile)
+    assert torch.equal(tcd.decode_tiles_ref(words, cfg, *tile, c, prior), tiles)
+
+
+def test_decode_slow_steps_counts_the_kernel_only():
+    """The slow-step count is the CUDA kernel's: the plain version takes none."""
+    tiles, prior, cfg = _run_tile(8, 1, (8, 8), 30, CPU)
+    words = _encoded_at_exact_width(tcd.encode_tiles_ref, tiles, prior, cfg, 8, 8)
+    with pytest.raises(ValueError, match="slow_steps"):
+        tcd.decode_tiles(words, cfg, 8, 8, 1, prior, slow_steps=torch.zeros(1, dtype=torch.int64))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,depth,c,tile,v,slow", RUN_CASES, ids=RUN_IDS)
+def test_cuda_decode_of_runs_past_the_window(cuda, name, depth, c, tile, v, slow):
+    """A code that just fits K2's window takes its fast path, one a bit
+    longer its slow path (counted); both decode as the plain version does."""
+    tiles, prior, cfg = _run_tile(depth, c, tile, v, cuda)
+    words = _encoded_at_exact_width(tcd.encode_tiles, tiles, prior, cfg, *tile)
+    count = torch.zeros(1, dtype=torch.int64, device=cuda)
+    got = tcd.decode_tiles(words, cfg, *tile, c, prior, slow_steps=count)
+    assert torch.equal(got, tcd.decode_tiles_ref(words, cfg, *tile, c, prior))
+    assert torch.equal(got, tiles)
+    assert int(count) == slow
+
+
+@pytest.mark.cuda
+def test_cuda_decode_of_a_smooth_image_takes_no_slow_step(cuda):
+    img = _image(7, (64, 64), np.uint8, True)
+    tiles, prior, cfg, th, tw = _inputs(img, (64, 64), "image", cuda)
+    words = _encoded_at_exact_width(tcd.encode_tiles, tiles, prior, cfg, th, tw)
+    count = torch.zeros(1, dtype=torch.int64, device=cuda)
+    assert torch.equal(tcd.decode_tiles(words, cfg, th, tw, 1, prior, slow_steps=count), tiles)
+    assert int(count) == 0
+
+
+@pytest.mark.cuda
+def test_cuda_decode_run_past_the_window_with_rings_in_global_scratch(cuda):
+    """The slow path beside rings in global scratch: a 2x30000 tile (its
+    plain version, at 60,000 steps, is left out)."""
+    tiles, prior, cfg = _run_tile(8, 1, (2, 30000), 30, cuda)
+    assert not tcd.decode_smem_bytes(cfg.num_k, 30000, 1) <= 232448
+    words = _encoded_at_exact_width(tcd.encode_tiles, tiles, prior, cfg, 2, 30000)
+    count = torch.zeros(1, dtype=torch.int64, device=cuda)
+    assert torch.equal(tcd.decode_tiles(words, cfg, 2, 30000, 1, prior, slow_steps=count), tiles)
+    assert int(count) == 1
+
+
+@pytest.mark.cuda
+def test_cuda_decode_run_past_the_window_with_wide_positions(cuda):
+    """The slow path in K2's 64-bit-position instantiation: a 2x2 tile whose
+    one coded out-of-range pixel needs it, in a row of more than 2^26 words."""
+    tiles, prior, cfg = _run_tile(8, 1, (2, 2), 30, cuda)
+    words = _encoded_at_exact_width(tcd.encode_tiles, tiles, prior, cfg, 2, 2)
+    W = (1 << 26) + 64
+    assert tcd.decode_wide_positions(W, 1, 2, 2)
+    rows = torch.zeros((1, W), dtype=torch.int32, device=cuda)
+    rows[:, :words.shape[1]] = words
+    count = torch.zeros(1, dtype=torch.int64, device=cuda)
+    wide_before = tcd.DECODE_WIDE_LAUNCHES
+    got = tcd.decode_tiles(rows, cfg, 2, 2, 1, prior, slow_steps=count)
+    assert tcd.DECODE_WIDE_LAUNCHES == wide_before + 1
+    assert torch.equal(got, tcd.decode_tiles_ref(rows, cfg, 2, 2, 1, prior))
+    assert torch.equal(got, tiles)
+    assert int(count) == 1
+
+
+def _run_rows(W, device):
+    """Garbage rows full of long runs of ones: after a sign bit, 29 or more
+    ones, words of all ones, and random words with a long run inside."""
+    rng = np.random.default_rng(12)
+    rows = rng.integers(-(1 << 31), 1 << 31, (40, W)).astype(np.int64)
+    rows[:8] |= 0x3FFFFFF0
+    rows[8:16] = 0x3FFFFFFF
+    rows[16:24] = 0x7FFFFFFF
+    rows[24:32, ::2] = -1
+    rows[24:32, 1::2] = 0x3FFFFFFF
+    rows[32:] = rng.integers(0, 1 << 31, (8, W)) | 0x1FFFFFF8
+    return torch.from_numpy(rows.astype(np.uint32).view(np.int32)).to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("prior_kind", ["k0", "zero"])
+@pytest.mark.parametrize("depth,c", GARBAGE, ids=[f"{d.name} C={c}" for d, c in GARBAGE])
+def test_cuda_decode_of_garbage_runs(cuda, depth, c, prior_kind):
+    """Corrupt rows whose runs pass K2's window, cut short by the row's end
+    or saturating the value: the kernel's planes are the plain version's."""
+    cfg = tiled_config_for_depth(depth)
+    prior = torch.zeros((c, tcd.num_buckets(cfg), cfg.num_k), dtype=torch.int32, device=cuda)
+    if prior_kind == "k0":
+        prior[..., 1:] = 1 << 20
+    for W in (1, 3, 7):
+        rows = _run_rows(W, cuda)
+        count = torch.zeros(1, dtype=torch.int64, device=cuda)
+        got = tcd.decode_tiles(rows, cfg, 4, 4, c, prior, slow_steps=count)
+        assert torch.equal(got, tcd.decode_tiles_ref(rows, cfg, 4, 4, c, prior)), W
+
+
 def _serving_images():
     """Four geometries: gray8 at two sizes (one clamps the tile), rgb8 and
     gray16."""
