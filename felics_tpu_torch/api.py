@@ -156,7 +156,7 @@ def probe(data: bytes) -> dict:
             "tile_w": h.tile_w,
             "tile_h": h.tile_h,
             "n_tiles": h.n_tiles,
-            "payload_bytes": int(h.tile_lengths.sum()),
+            "payload_bytes": h.payload_bytes,
         }
     h = read_header(io.BytesIO(data))
     return {

@@ -66,10 +66,16 @@ def config_for_depth(depth: PixelDepth) -> CodingConfig:
     return CONFIG_8BIT if depth == PixelDepth.EIGHT else CONFIG_16BIT
 
 
+_TILED_CONFIGS = {
+    depth: replace(config_for_depth(depth), count_scaling=None) for depth in PixelDepth
+}
+
+
 def tiled_config_for_depth(depth: PixelDepth) -> CodingConfig:
     """FLCT coding parameters: the FLCS ones without count scaling (tiles
-    restart the estimator, so the k-tables are plain prefix sums)."""
-    return replace(config_for_depth(depth), count_scaling=None)
+    restart the estimator, so the k-tables are plain prefix sums); one
+    instance a depth, made at import."""
+    return _TILED_CONFIGS[depth]
 
 
 @dataclass(frozen=True)

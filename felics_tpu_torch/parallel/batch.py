@@ -97,10 +97,11 @@ def compress_tiled_batch(
 
 
 def _read_members(datas: Sequence[bytes], isolate: bool) -> List:
-    """(header, payload) of each container, read and checked on the host.
-    ``isolate`` keeps a bad member's DecompressionError in its place;
-    otherwise every header is read before any payload is checked, and the
-    first failure raises."""
+    """(header, payload) of each container, read and checked on the host,
+    both views of the container's bytes (the payload is copied once, into
+    the chain's input, before the dispatch returns). ``isolate`` keeps a
+    bad member's DecompressionError in its place; otherwise every header
+    is read before any payload is checked, and the first failure raises."""
     if not isolate:
         headers = [flct.read_tiled_header(d) for d in datas]
         return [(hd, tiling.payload_of(d, hd)) for d, hd in zip(datas, headers)]

@@ -23,10 +23,10 @@ all-zero priors. All integers are big-endian.
 
 from __future__ import annotations
 
-import math
 import struct
 from dataclasses import dataclass
-from typing import Optional, Tuple
+from functools import cached_property
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -54,7 +54,9 @@ class TiledHeader:
     tile_w: int
     tile_h: int
     n_tiles: int
-    tile_lengths: np.ndarray  # payload bytes per tile, int64
+    # Payload bytes per tile: the container's big-endian table, viewed in
+    # place (any integer array when built by hand).
+    table: np.ndarray
     flags: int = 0
     k0: Optional[np.ndarray] = None  # (C, nb) int32, v2 only
     payload_off: int = FIXED_HEADER.size
@@ -63,14 +65,22 @@ class TiledHeader:
     def num_channels(self) -> int:
         return 1 if self.color_type == ColorType.GRAY else 3
 
+    @property
+    def tile_lengths(self) -> np.ndarray:
+        """Payload bytes per tile, int64 (a copy of ``table``)."""
+        return self.table.astype(np.int64)
+
+    @cached_property
+    def payload_bytes(self) -> int:
+        return int(self.table.sum())
+
 
 def read_tiled_header(data: bytes) -> TiledHeader:
-    """Parse and validate the header, prior block and length table."""
+    """Parse and validate the header, prior block and length table of a
+    bytes-like container; the table and k0 nibbles are read in place."""
     if len(data) < FIXED_HEADER.size:
         raise errors.IoError("truncated FLCT header")
-    magic, color, depth, w, h, tw, th, flags, n_tiles = FIXED_HEADER.unpack(
-        data[: FIXED_HEADER.size]
-    )
+    magic, color, depth, w, h, tw, th, flags, n_tiles = FIXED_HEADER.unpack_from(data)
     if magic != MAGIC_TILED:
         raise errors.InvalidSignature(f"bad magic {magic!r}")
     if flags & ~KNOWN_FLAGS:
@@ -81,7 +91,7 @@ def read_tiled_header(data: bytes) -> TiledHeader:
     # match n_tiles: a corrupt field would otherwise mis-slice the payload.
     if tw < 2 or th < 2:
         raise errors.InvalidDimensions(f"invalid tile dims {tw}x{th}")
-    expect_tiles = math.prod(TileConfig(th, tw).grid(h, w))
+    expect_tiles = -(-h // th) * -(-w // tw)  # TileConfig(th, tw).grid(h, w)'s tiles
     if n_tiles != expect_tiles:
         raise errors.InvalidDimensions(
             f"tile grid mismatch: header says {n_tiles} tiles, dims imply "
@@ -91,27 +101,21 @@ def read_tiled_header(data: bytes) -> TiledHeader:
     k0 = None
     if flags & FLAG_K_PRIOR:
         c = 1 if color_type == ColorType.GRAY else 3
-        cfg = tiled_config_for_depth(pixel_depth)
-        nb = num_buckets(cfg)
-        nbytes = (c * nb + 1) // 2
+        consts = _DEPTHS[pixel_depth]
+        nbytes = (c * consts.nb + 1) // 2
         if len(data) < pos + nbytes:
             raise errors.IoError("truncated FLCT k-prior block")
-        nibs = np.frombuffer(data[pos : pos + nbytes], dtype=np.uint8)
-        k0 = np.empty(nbytes * 2, np.int32)
-        k0[0::2] = nibs >> 4
-        k0[1::2] = nibs & 0x0F
-        # A nibble past the largest k only shapes the prior: clamp it.
-        k0 = np.minimum(k0[: c * nb], cfg.k_values[-1]).reshape(c, nb)
+        nibs = np.frombuffer(data, np.uint8, nbytes, pos)
+        k0 = consts.nibbles[nibs].reshape(-1)[: c * consts.nb].reshape(c, consts.nb)
         pos += nbytes
     entry = 2 if flags & FLAG_TABLE_U16 else 4
     end = pos + entry * n_tiles
     if len(data) < end:
         raise errors.IoError("truncated FLCT tile table")
-    dt = ">u2" if flags & FLAG_TABLE_U16 else ">u4"
-    lengths = np.frombuffer(data[pos:end], dtype=dt).astype(np.int64)
+    table = np.frombuffer(data, ">u2" if flags & FLAG_TABLE_U16 else ">u4", n_tiles, pos)
     return TiledHeader(
         color_type=color_type, pixel_depth=pixel_depth, width=w, height=h,
-        tile_w=tw, tile_h=th, n_tiles=n_tiles, tile_lengths=lengths,
+        tile_w=tw, tile_h=th, n_tiles=n_tiles, table=table,
         flags=flags, k0=k0, payload_off=end,
     )
 
@@ -126,6 +130,42 @@ def prior_from_k0(k0: Optional[np.ndarray], cfg: CodingConfig, c: int):
     return (PRIOR_WEIGHT * np.abs(kv[None, None, :] - k0[..., None])).astype(
         np.int32
     )
+
+
+class _DepthConstants(NamedTuple):
+    """What reading a header and seeding its priors need of a pixel depth,
+    made once at import (``_DEPTHS``)."""
+
+    nb: int  # context buckets of a k-table
+    nibbles: np.ndarray  # (256, 2) int32: a prior byte's two k0, clamped to the largest k
+    # (_V0_ROW + 1, K) int32: row k is prior_from_k0's row for k0 = k (0..15),
+    # row _V0_ROW a v0 member's zeros.
+    prior_rows: np.ndarray
+
+
+_V0_ROW = 16  # prior_rows' row of a v0 member: past every 4-bit k0
+
+
+def _depth_constants(depth: PixelDepth) -> _DepthConstants:
+    cfg = tiled_config_for_depth(depth)
+    byte = np.arange(256)
+    # A nibble past the largest k only shapes the prior: clamp it.
+    nibbles = np.minimum(np.stack([byte >> 4, byte & 0x0F], 1), cfg.k_values[-1])
+    rows = prior_from_k0(np.arange(_V0_ROW)[None], cfg, 1)[0]
+    return _DepthConstants(num_buckets(cfg), nibbles.astype(np.int32),
+                           np.concatenate([rows, np.zeros_like(rows[:1])]))
+
+
+_DEPTHS = {depth: _depth_constants(depth) for depth in PixelDepth}
+
+
+def priors_into(out: np.ndarray, k0s: Sequence[Optional[np.ndarray]],
+                depth: PixelDepth) -> None:
+    """Write a group's (n, C, nb, K) int32 k-table seeds into ``out``: each
+    member's ``prior_from_k0`` of its (C, nb) k0 values (None: a v0
+    member, zeros), in one gather of the depth's prior rows over them all."""
+    rows = [np.full(out.shape[1:3], _V0_ROW) if k is None else k for k in k0s]
+    np.take(_DEPTHS[depth].prior_rows, rows, axis=0, out=out)
 
 
 def pack_tiled_container(

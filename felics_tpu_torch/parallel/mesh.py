@@ -171,7 +171,7 @@ def decode_shards(
     hd = flct.read_tiled_header(data)
     if hd.height == 0 or hd.width == 0:
         return tiling.empty_image(hd)
-    payload = tiling.payload_of(data, hd)
+    payload = bytes(tiling.payload_of(data, hd))  # shards join slices of it
     n, lens = hd.n_tiles, hd.tile_lengths
     plan = tiling.decode_plan([hd], lens)
     starts = np.concatenate([[0], np.cumsum(lens)])

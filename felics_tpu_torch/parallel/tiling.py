@@ -578,12 +578,13 @@ def assemble_images(bufs: torch.Tensor, plan: DecodePlan):
     return out, valid
 
 
-def payload_of(data: bytes, hd: flct.TiledHeader) -> bytes:
-    """The container's tile streams, exactly; IoError when truncated."""
-    expected = int(hd.tile_lengths.sum())
+def payload_of(data: bytes, hd: flct.TiledHeader) -> memoryview:
+    """The container's tile streams, exactly, as a view of ``data`` (no
+    copy); IoError when truncated."""
+    expected = hd.payload_bytes
     if len(data) - hd.payload_off < expected:
         raise errors.IoError("truncated FLCT payload")
-    return data[hd.payload_off : hd.payload_off + expected]
+    return memoryview(data)[hd.payload_off : hd.payload_off + expected]
 
 
 def empty_image(hd: flct.TiledHeader) -> np.ndarray:
@@ -594,10 +595,10 @@ def empty_image(hd: flct.TiledHeader) -> np.ndarray:
     return np.zeros(shape, dtype)
 
 
-def row_width(lens: np.ndarray) -> int:
-    """The bucketed word width of rows that hold tile streams of ``lens``
-    bytes."""
-    return tile_codec.bucket_words(int(-(-lens.max(initial=1) // 4)))
+def row_width(*tables: np.ndarray) -> int:
+    """The bucketed word width of rows that hold tile streams of the byte
+    lengths in ``tables``."""
+    return tile_codec.bucket_words(-(-max(int(t.max(initial=1)) for t in tables) // 4))
 
 
 class DecodePlan(NamedTuple):
@@ -631,30 +632,47 @@ class DecodePlan(NamedTuple):
         return self.offsets()[1] + self.size
 
 
-def decode_plan(headers: Sequence[flct.TiledHeader], lens: np.ndarray) -> DecodePlan:
+def decode_plan(
+    headers: Sequence[flct.TiledHeader], lens: Optional[np.ndarray] = None,
+) -> DecodePlan:
     """The plan of a decode of same-geometry containers' tile streams of
-    ``lens`` bytes (int64)."""
+    ``lens`` bytes (one integer array over the group; None reads each
+    header's own table)."""
     h0 = headers[0]
+    if lens is None:
+        tables = [hd.table for hd in headers]
+        nbytes = sum(hd.payload_bytes for hd in headers)
+    else:
+        tables, nbytes = [lens], int(lens.sum())
     return DecodePlan("decode", h0.tile_h, h0.tile_w, h0.num_channels, h0.pixel_depth,
-                      tuple((hd.height, hd.width) for hd in headers), len(lens),
-                      row_width(lens), payload_bucket(int(lens.sum())))
+                      tuple((hd.height, hd.width) for hd in headers),
+                      sum(len(t) for t in tables), row_width(*tables),
+                      payload_bucket(nbytes))
 
 
 def fill_containers(
     host: np.ndarray, plan: DecodePlan, headers: Sequence[flct.TiledHeader],
-    lens: np.ndarray, payloads: Sequence[bytes],
+    lens: Optional[np.ndarray], payloads: Sequence[bytes],
 ) -> None:
     """The decode input's layout (``DecodePlan.offsets``), written into a
-    uint8 host array: the length table, each header's prior, the payloads
-    back to back."""
+    uint8 host array: the length table (``lens``, or with None each
+    header's big-endian table in turn), every header's prior in one pass,
+    the payloads back to back, each copied once from its bytes-like."""
     o1, o2 = plan.offsets()
-    cfg, c = plan.cfg, plan.num_channels
-    host[:o1].view(np.int64)[:] = lens
-    host[o1:o2].view(np.int32)[:] = np.stack(
-        [flct.prior_from_k0(hd.k0, cfg, c) for hd in headers]).reshape(-1)
+    table = host[:o1].view(np.int64)
+    at = 0
+    for t in [hd.table for hd in headers] if lens is None else [lens]:
+        table[at : at + len(t)] = t
+        at += len(t)
+    cfg = plan.cfg
+    flct.priors_into(
+        host[o1:o2].view(np.int32).reshape(
+            len(headers), plan.num_channels, tile_codec.num_buckets(cfg), cfg.num_k),
+        [hd.k0 for hd in headers], plan.pixel_depth)
     for p in payloads:
-        host[o2 : o2 + len(p)] = np.frombuffer(p, np.uint8)
-        o2 += len(p)
+        n = len(p)
+        host[o2 : o2 + n] = np.frombuffer(p, np.uint8)
+        o2 += n
 
 
 def container_views(buf: torch.Tensor, plan: DecodePlan):
@@ -714,10 +732,9 @@ def decode_chain(buf: torch.Tensor, plan: DecodePlan):
 
 def _decode(headers, payloads, device, graph: bool):
     with span("felics.stage.key"):
-        lens = np.concatenate([hd.tile_lengths for hd in headers])
-        plan = decode_plan(headers, lens)
+        plan = decode_plan(headers)
     return run_chain(
-        plan, device, lambda host: fill_containers(host, plan, headers, lens, payloads),
+        plan, device, lambda host: fill_containers(host, plan, headers, None, payloads),
         decode_chain, graph)[0]
 
 

@@ -694,6 +694,53 @@ def test_cuda_graph_dispatch_does_not_wait_on_replay(cuda):
         assert out.dtype == im.dtype and np.array_equal(out, im)
 
 
+def _overwritten(batches):
+    """``bytearray`` copies of each batch's containers, zeroed as soon as
+    the consumer asks for the next batch: a stream has dispatched the batch
+    by then, and may not have finished it."""
+    for b in batches:
+        copies = [bytearray(d) for d in b]
+        yield copies
+        for c in copies:
+            c[:] = bytes(len(c))
+
+
+@pytest.mark.cuda
+def test_cuda_decode_stage_copies_before_dispatch_returns(cuda):
+    """gray16 at tile 32, 4 a call, and a depth-2 stream of gray8 chunks of
+    3 at tile 64 replay their decode graphs and give the eager chain's and
+    the CPU's images, from ``bytearray`` containers zeroed right after each
+    dispatch returns: the stage's one copy of each payload is made by
+    then."""
+    g16 = [_image(50 + i, (96, 128), np.uint16, True) for i in range(4)]
+    g8 = [[_image(60 + 3 * b + i, (128, 192), np.uint8, bool(i % 2)) for i in range(3)]
+          for b in range(4)]
+    blobs16 = batch.compress_tiled_batch(g16, TileConfig(32, 32), device=cuda)
+    blobs8 = [batch.compress_tiled_batch(b, TileConfig(64, 64), device=cuda) for b in g8]
+    headers = [flct.read_tiled_header(d) for d in blobs16]
+    eager, ok = tiling.decode_finish(tiling.decode_dispatch(
+        headers, [tiling.payload_of(d, hd) for d, hd in zip(blobs16, headers)], cuda))
+    assert ok.all()
+    for want, got in zip(g16, batch.decompress_tiled_batch(blobs16, device=CPU)):
+        assert np.array_equal(got, want)
+
+    def dispatch_then_overwrite():
+        copies = [bytearray(d) for d in blobs16]
+        state = batch._decode_dispatch(copies, cuda, False)
+        for c in copies:
+            c[:] = bytes(len(c))
+        return batch._decode_finish(state, cuda, False)
+
+    for outs in _until_replayed(dispatch_then_overwrite, "decode"):
+        assert all(np.array_equal(o, e) for o, e in zip(outs, eager))
+    cpu8 = [batch.decompress_tiled_batch(b, device=CPU) for b in blobs8]
+    assert all(np.array_equal(o, im) for c, b in zip(cpu8, g8) for o, im in zip(c, b))
+    for outs in _until_replayed(lambda: batch.decompress_tiled_stream(
+            _overwritten(blobs8), depth=2, device=cuda), "decode"):
+        for got, want in zip(outs, cpu8):
+            assert all(np.array_equal(o, w) for o, w in zip(got, want))
+
+
 @pytest.mark.cuda
 def test_cuda_graph_cache_hands_evicted_pools_back(cuda, native_codec):
     """Under a bound of one byte, batches of 1..6 images of one shape (one
