@@ -1,51 +1,44 @@
 """The comparison that decides ``correct``: a sample of the window's calls
-against the plain reference (``reference/flct_ref.py``).
+against the plain reference of the configuration's container
+(``containers/<container>.reference``: ``reference/flct_ref.py``,
+``reference/flcs_ref.py``).
 
 Ingest: every sampled container must equal, byte for byte, the one the
 reference encodes from the same image. Serve: the sampled calls' containers
 (made by the code under test at set-up) must equal the reference's of
-their images, and every decoded sample must equal the image's: FLCT is
-lossless, so the reference's decode of its own container is the image
-itself. A missing or failed output counts in full (every byte or sample).
+their images, and every decoded sample must equal the image's: both
+containers are lossless, so the reference's decode of its own container
+is the image itself. A missing or failed output counts in full (every byte or sample).
 Each number is exact and its limit is 0.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Sequence
+from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
-
-from h100_bench.reference import flct_ref
 
 LIMITS = {"bad_containers": 0, "bad_samples": 0}
 
 
-def _reference(pool, tile, device):
-    made: Dict[int, bytes] = {}
-
-    def get(i: int) -> bytes:
-        if i not in made:
-            made[i] = flct_ref.encode_image(pool[i], tile, device)
-        return made[i]
-    return get
-
-
-def compare(direction: str, sample: Sequence, pool: Sequence[np.ndarray], tile,
-            device, containers: Optional[List[bytes]]) -> Dict:
+def compare(direction: str, sample: Sequence, pool: Sequence[np.ndarray],
+            reference: Callable[[List[int]], List[bytes]],
+            containers: Optional[List[bytes]]) -> Dict:
     """{name: {"value", "limit"}} of each number compared, and how many
-    containers and images it covered."""
-    ref = _reference(pool, tile, device)
+    containers and images it covered; ``reference(indices)`` gives the
+    reference's containers of pool indices."""
+    wanted = sorted({i for items, _ in sample for i in items})
+    ref = dict(zip(wanted, reference(wanted)))
     bad_containers = bad_samples = images = 0
     if direction == "encode":
         for items, out in sample:
             ok = isinstance(out, list) and len(out) == len(items)
             for n, i in enumerate(items):
                 images += 1
-                bad_containers += not (ok and out[n] == ref(i))
+                bad_containers += not (ok and out[n] == ref[i])
     else:
-        for i in sorted({i for items, _ in sample for i in items}):
-            bad_containers += containers[i] != ref(i)
+        for i in wanted:
+            bad_containers += containers[i] != ref[i]
         for items, out in sample:
             ok = isinstance(out, list) and len(out) == len(items)
             for n, i in enumerate(items):

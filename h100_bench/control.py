@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Read the comparison's numbers on the card for the code under test and
-for the control (the reference with one guarantee broken,
+for the control (the reference with one guarantee broken, as the
+configuration's container module picks it: ``containers/<container>.py``,
 ``reference/controls.py``), seed after seed, in one process.
 
     python3 h100_bench/control.py --workload <cell> --seconds <s> --seeds <n> [<n> ...]
@@ -31,7 +32,6 @@ def main(argv=None) -> int:
     import torch
 
     from h100_bench import check, harness
-    from h100_bench.reference import controls
 
     if not torch.cuda.is_available():
         print("control.py: no CUDA device", file=sys.stderr)
@@ -39,12 +39,12 @@ def main(argv=None) -> int:
     device = torch.device("cuda", 0)
     cell = harness.load_cell(args.workload)
     harness.set_heap(cell.config)
+    container = harness.load_container(cell.config)
     direction = harness.load_file(
         harness.BENCH_DIR / "drivers" / f"{cell.mix['driver']}.py").DIRECTION
     for seed in args.seeds:
         for side in ("program", "control"):
-            sub = (controls.substitute(direction, tuple(cell.config["tile"]), device)
-                   if side == "control" else None)
+            sub = container.control(direction, cell.config, device) if side == "control" else None
             t0 = time.perf_counter()
             result, checks = harness.run_cell(cell, seed, args.seconds, False, device,
                                               t0, substitute=sub)

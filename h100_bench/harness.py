@@ -1,9 +1,12 @@
 """The core of the benchmark: one cell, one seed, one run.
 
 A cell (an entry of ``BENCHMARK.json``'s ``workloads``) names a
-configuration (``configs/<config>.json``: colour, depth, tile) and a
-traffic mix (``traffic/<traffic>.json``: the driver, image sizes and
-counts and the call's size). The run:
+configuration (``configs/<config>.json``: container, colour, depth and,
+for FLCT, tile) and a traffic mix (``traffic/<traffic>.json``: the
+driver, image sizes and counts and the call's size). What is particular
+to a container (its kernels and their launch counters, its payload, its
+geometry groups, its reference and its controls) is read from
+``containers/<container>.py``. The run:
 
 1. set-up: makes a pool of photograph-like images from the seed on the card
    (``traffic/images.py``), hands it to the mix's driver
@@ -45,7 +48,6 @@ import numpy as np
 BENCH_DIR = Path(__file__).resolve().parent
 ROOT = BENCH_DIR.parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "felics_tpu")
-KERNELS = {"encode": "flct_encode_kernel", "decode": "flct_decode_kernel"}
 # Set-up warms on fresh draws in blocks of WARM_BLOCK calls until a block
 # captures no graph and replays as many as the block before, at most
 # MAX_WARM_BLOCKS blocks: what a fresh service has met by then.
@@ -130,6 +132,12 @@ def load_file(path: Path):
     return mod
 
 
+def load_container(config: Dict):
+    """The module of the configuration's container (FLCT where it names
+    none)."""
+    return load_file(BENCH_DIR / "containers" / f"{config.get('container', 'flct')}.py")
+
+
 def draws(seed: int, n_pool: int, per_call: int) -> Iterator[List[int]]:
     """Calls of ``per_call`` pool indices, without end: each pass over the
     pool a fresh seeded permutation, cut into calls, so that every seed
@@ -181,16 +189,11 @@ class Run:
     clocks: str = ""  # the card's clocks as the window closed
 
 
-def geometry_groups(driver, items, pool, tile) -> int:
+def geometry_groups(driver, items, pool, container, config) -> int:
     """Geometry groups the entry point dispatches for a call: per batch,
-    the distinct (clamped tile dims, channels, depth)."""
-    from h100_bench.reference.flct_ref import tile_dims
-
-    n = 0
-    for chunk in driver.chunks(items):
-        n += len({(tile_dims(*pool[i].shape[:2], tile), pool[i].ndim, pool[i].dtype.str)
-                  for i in chunk})
-    return n
+    what the container groups by."""
+    return sum(container.groups([pool[i] for i in chunk], config)
+               for chunk in driver.chunks(items))
 
 
 def run_cell(cell: Cell, seed: int, seconds: float, trace_on: bool, device,
@@ -200,26 +203,25 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace_on: bool, device,
     import torch
 
     from h100_bench import check, roofline, trace
-    from h100_bench.reference.flct_ref import read_container
     from h100_bench.traffic import images
-    from felics_tpu_torch.ops import tile_codec
     from felics_tpu_torch.parallel import graphs
 
     mix, conf = cell.mix, cell.config
+    container = load_container(conf)
     drv = load_file(BENCH_DIR / "drivers" / f"{mix['driver']}.py")
     direction = drv.DIRECTION
-    tile = tuple(conf["tile"])
     rgb, depth = conf["color"] == "rgb", int(conf["depth"])
     pool = images.make_pool(seed, [tuple(s) for s in mix["sizes"]], mix["counts"], rgb,
                             depth, device)
-    driver = drv.Driver(pool, tile, mix, device)
+    tile = (tuple(conf["tile"]),) if "tile" in conf else ()
+    driver = drv.Driver(pool, *tile, mix, device)
     call = driver.call if substitute is None else (lambda items: substitute(driver, items))
     stream = draws(seed, len(pool), mix["batch"])
     px = [int(im.shape[0]) * int(im.shape[1]) for im in pool]
     sample_bytes = 2 if depth == 16 else 1
     payload: Dict[int, int] = {}
     if direction == "decode":
-        payload = {i: read_container(c).payload_bytes for i, c in enumerate(driver.containers)}
+        payload = {i: container.payload_bytes(c) for i, c in enumerate(driver.containers)}
 
     run = Run(direction)
     prev = None
@@ -231,7 +233,7 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace_on: bool, device,
             run.warm_calls += 1
             if direction == "encode":
                 for i, blob in zip(items, out):
-                    payload.setdefault(i, read_container(blob).payload_bytes)
+                    payload.setdefault(i, container.payload_bytes(blob))
         now = (graphs.CAPTURES[direction] - c0, graphs.REPLAYS[direction] - r0)
         if block >= 2 and now[0] == 0 and now[1] == prev[1]:
             break
@@ -275,7 +277,7 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace_on: bool, device,
     attempted = sum(len(items) for items in issued)
     run.call_px = [sum(px[i] for i in items) for items in issued]
     run.pixels = sum(run.call_px)
-    run.groups = sum(geometry_groups(driver, items, pool, tile) for items in issued)
+    run.groups = sum(geometry_groups(driver, items, pool, container, conf) for items in issued)
 
     if trace_on:
         traced_items: List[List[int]] = []
@@ -289,15 +291,14 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace_on: bool, device,
                 if direction == "encode":
                     for i, blob in zip(items, out):
                         if i not in payload:
-                            payload[i] = read_container(blob).payload_bytes
+                            payload[i] = container.payload_bytes(blob)
 
-        kernel = KERNELS[direction]
-        count = "ENCODE_LAUNCHES" if direction == "encode" else "DECODE_LAUNCHES"
+        kernel = container.KERNELS[direction]
         tries = []
         for _ in range(trace.TRIES):
             traced_items.clear()
             run.window = trace.profile(
-                traced, int(mix["trace_calls"]), kernel, lambda: getattr(tile_codec, count))
+                traced, int(mix["trace_calls"]), kernel, lambda: container.launches(direction))
             tries.append((len(run.window.kernel_spans()), run.window.launches))
             if run.window.complete():
                 break
@@ -317,7 +318,7 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace_on: bool, device,
     if device.type == "cuda":
         torch.cuda.empty_cache()
     t_check = time.perf_counter()
-    checks = check.compare(direction, sample, pool, tile, device,
+    checks = check.compare(direction, sample, pool, container.reference(pool, conf, device),
                            getattr(driver, "containers", None))
     result = {
         "check_s": time.perf_counter() - t_check,

@@ -2,7 +2,7 @@
 a sound one correct: the whole run (set-up, window, trace, check) on the
 CPU at a tiny size, the card's check skipped. Faults a cell of this
 benchmark can have: an answer altered where it is produced, half of a
-batch left out. The controls (``reference/controls.py``) fail too."""
+batch left out. The controls (each container's ``control``) fail too."""
 
 import time
 
@@ -33,10 +33,11 @@ def test_sound_run_is_correct(name, cpu):
 
 @pytest.mark.parametrize("name", PAIRS)
 def test_control_is_not_correct(name, cpu):
-    cell = pair_cell(name)
+    cell = tiny(pair_cell(name))
     direction = harness.load_file(
         harness.BENCH_DIR / "drivers" / f"{cell.mix['driver']}.py").DIRECTION
-    line, checks = run(name, cpu, controls.substitute(direction, (8, 8), cpu))
+    line, checks = run(name, cpu, harness.load_container(cell.config).control(
+        direction, cell.config, cpu))
     assert not line["correct"]
     key = "bad_containers" if direction == "encode" else "bad_samples"
     assert checks[key]["value"] > checks[key]["limit"]

@@ -17,9 +17,11 @@ def loaded_after(code):
 
 
 def test_reference_loads_nothing_of_the_port_or_jax():
-    mods = loaded_after("from h100_bench import check, roofline\n"
-                        "from h100_bench.reference import flct_ref, controls\n"
-                        "from h100_bench.traffic import images")
+    mods = loaded_after("from h100_bench import check, harness, roofline\n"
+                        "from h100_bench.reference import flcs_ref, flct_ref, controls\n"
+                        "from h100_bench.traffic import images\n"
+                        "for name in ('flct', 'flcs'):\n"
+                        "    harness.load_container({'container': name})")
     assert not mods & (FORBIDDEN | {"felics_tpu_torch"})
 
 

@@ -62,7 +62,7 @@ def test_every_reader_is_in_the_benchmark():
     for name in READERS:
         m = entries[name]
         cell = CELLS[0] if name.endswith(".enc") else CELLS[1]
-        assert m["source"] == "program_span" and m["workloads"] == [cell]
+        assert m["source"] == "program_span" and cell in m["workloads"]
         assert m["layer"] == "entry and host chain" and m["unit"] == "ms"
 
 
